@@ -1,0 +1,384 @@
+"""Megakernel integrator in PyTorch (counterpart of the reference
+``models/megakernel.py``), limited to the fused kernel's feature set.
+
+Estimator (NEE + one-sample power-heuristic MIS for area lights +
+Russian roulette, transmission tracking):
+
+    L += β · Le · f·cosθ · w / (pmf · pdf_light)   (area lights)
+    L += β · Le · f·cosθ / pmf                      (point/spot lights)
+    β *= f·cosθ / pdf_bsdf                          (bounce)
+
+Two routes down the same path:
+
+- ``fused="on"``: ``models/megakernel_cuda.trace_paths_fused``, the whole
+  path loop in one CUDA kernel (one thread per path);
+- ``fused="off"``: ``trace_paths`` below, a Python depth loop of dense
+  masked bounce steps over the ray batch, whose closest-hit and shadow
+  queries go to the brute-force CUDA kernels (``ops/intersect_cuda.py``)
+  for CUDA tensors and to the plain sweep for CPU tensors.
+
+``trace_paths`` with ``backend="torch"`` is the plain version of the fused
+kernel and of the intersection kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from .._device import resolve_device
+from ..ops import intersect_cuda
+from ..ops import rng as R
+from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
+from ..ops.camera import generate_rays, pixel_centers
+from ..ops.envmap import eval_envmap
+from ..ops.film import Film, film_add_batch, film_add_sample, film_new
+from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_raw
+from ..ops.lights import AREA, eval_light, sample_area_light, sample_light
+from ..ops.vecmath import dot, max_component, offset_ray_origin, sqr
+from ..scene.types import Scene, scene_to
+
+
+@dataclass(frozen=True)
+class MegakernelConfig:
+    max_depth: int = 5  # bounce budget
+    rr_start_depth: int = 2  # roulette active from this depth on
+    sampler: str = "hash"  # "hash" ("halton": slice 4)
+    seed: int = 0
+    tri_chunk: int = 32  # triangles per step of the plain sweep
+    env_nee: bool = False  # envmap NEE (slice 5); outside the fused set
+    backend: str = "auto"  # "auto" | "torch" | "cuda": intersection
+    # kernels. auto = the CUDA kernels for CUDA tensors, the plain sweep
+    # for CPU tensors; torch = the plain sweep everywhere (the kernels'
+    # plain version); cuda = the kernels, raising for CPU tensors
+    features: MatFeatures = ALL_FEATURES  # material lobes the plain
+    # evaluators keep (bsdf.mat_features_from_table)
+    pixel_filter: str = "box"  # "box" ("mitchell": slice 4)
+    light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5)
+    fused: str = "auto"  # "auto" | "on" | "off": the fused CUDA path-loop
+    # kernel; auto = on for CUDA scenes inside its feature set
+
+
+def _validate(cfg: MegakernelConfig) -> None:
+    if cfg.sampler == "halton":
+        raise NotImplementedError("the Halton sampler is not ported yet (slice 4)")
+    if cfg.sampler != "hash":
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if cfg.pixel_filter != "box":
+        raise NotImplementedError(
+            f"pixel_filter={cfg.pixel_filter!r} is not ported yet (slice 4)"
+        )
+    if cfg.light_strategy == "tree":
+        raise NotImplementedError("the light tree is not ported yet (slice 5)")
+    if cfg.light_strategy not in ("auto", "uniform"):
+        raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}")
+    if cfg.backend not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.fused not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused mode {cfg.fused!r}")
+
+
+def _use_kernels(cfg: MegakernelConfig, t: torch.Tensor) -> bool:
+    if cfg.backend == "torch":
+        return False
+    if cfg.backend == "cuda" and not t.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors")
+    return t.is_cuda
+
+
+def _closest(scene: Scene, cfg, o, d):
+    if _use_kernels(cfg, o):
+        t, i = intersect_cuda.closest_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1
+        )
+    else:
+        t, i = intersect_closest_raw(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
+        )
+    return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
+
+
+def _any(scene: Scene, cfg, o, d, t_max):
+    if _use_kernels(cfg, o):
+        return intersect_cuda.anyhit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max
+        )
+    return intersect_any(
+        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
+    )
+
+
+def resolve_fused(scene: Scene, cfg: MegakernelConfig) -> MegakernelConfig:
+    """Pin ``cfg.fused`` to "on"/"off" for a concrete scene; "on" is
+    validated against the fused kernel's feature set. "auto" fuses CUDA
+    scenes inside that set unless ``backend="torch"`` asks for the plain
+    path."""
+    from .megakernel_cuda import megakernel_cuda_supported
+
+    _validate(cfg)
+    if cfg.fused == "on":
+        if not megakernel_cuda_supported(scene, cfg):
+            raise ValueError(
+                "fused='on' but the scene/config is outside the fused "
+                "kernel's feature set (see models/megakernel_cuda.py)"
+            )
+        return cfg
+    if cfg.fused == "off":
+        return cfg
+    on = (
+        scene.device.type == "cuda"
+        and cfg.backend != "torch"
+        and megakernel_cuda_supported(scene, cfg)
+    )
+    return dataclasses.replace(cfg, fused="on" if on else "off")
+
+
+class PathState(NamedTuple):
+    o: torch.Tensor  # (N,3)
+    d: torch.Tensor  # (N,3)
+    beta: torch.Tensor  # (N,3)
+    radiance: torch.Tensor  # (N,3)
+    alive: torch.Tensor  # (N,) bool
+    inside: torch.Tensor  # (N,) odd transmission count
+    eta_scale: torch.Tensor  # (N,) ∏ η² for roulette
+    prev_pdf: torch.Tensor  # (N,) bsdf pdf of the last bounce (MIS)
+    prev_delta: torch.Tensor  # (N,) last bounce was specular
+
+
+def init_path_state(n: int, o, d) -> PathState:
+    dev = o.device
+    f = dict(dtype=torch.float32, device=dev)
+    b = dict(dtype=torch.bool, device=dev)
+    return PathState(
+        o=o,
+        d=d,
+        beta=torch.ones((n, 3), **f),
+        radiance=torch.zeros((n, 3), **f),
+        alive=torch.ones((n,), **b),
+        inside=torch.zeros((n,), **b),
+        eta_scale=torch.ones((n,), **f),
+        prev_pdf=torch.zeros((n,), **f),
+        prev_delta=torch.ones((n,), **b),  # the camera counts as delta
+    )
+
+
+def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside):
+    """Next-event estimation at the hit points → (N,3) contribution."""
+    n_lights = scene.num_lights
+    ul = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.LIGHT_SELECT)
+    light_idx = torch.clamp((ul * n_lights).to(torch.int64), max=n_lights - 1)
+    lt = scene.lights.gather(light_idx)
+    pmf = 1.0 / n_lights
+
+    u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.LIGHT_U)
+    ls = sample_light(lt, hit.pos, u1, u2, hit.normal)
+    direction, distance, pdf = ls.direction, ls.distance, ls.pdf
+    le = eval_light(lt, ls)
+    is_area = None
+    if scene.emissive is not None:
+        # area rows sample the emissive set by area; the shadow ray stops
+        # just short of the sampled point
+        is_area = lt.ltype == AREA
+        _, d_a, dist_a, pdf_a, le_a = sample_area_light(
+            scene.emissive, hit.pos, u1, u2
+        )
+        direction = torch.where(is_area[..., None], d_a, direction)
+        distance = torch.where(is_area, dist_a * 0.999, distance)
+        pdf = torch.where(is_area, pdf_a, pdf)
+        le = torch.where(is_area[..., None], le_a, le)
+
+    f_cos, bsdf_pdf = eval_bsdf(
+        mat, wo, direction, hit.normal, hit.normal, inside, ft=cfg.features
+    )
+    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
+    occluded = _any(scene, cfg, shadow_o, direction, distance)
+
+    # point/spot lights are not scene geometry: NEE is their only
+    # estimator, so no MIS weight and no division by the cone pdf (the
+    # 1/d² falloff is already in le)
+    contrib = le * f_cos / pmf
+    if is_area is not None:
+        # area lights are geometry: power-heuristic MIS against the BSDF
+        # estimator on the full density pmf·pdf
+        pdf_total = pdf * pmf
+        w = sqr(pdf_total) / torch.clamp(sqr(pdf_total) + sqr(bsdf_pdf), min=1e-24)
+        contrib_area = le * f_cos * (w / torch.clamp(pdf_total, min=1e-12))[..., None]
+        contrib = torch.where(is_area[..., None], contrib_area, contrib)
+    ok = (pdf > 0.0) & ~occluded
+    return torch.where(ok[..., None], contrib, 0.0)
+
+
+def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: PathState) -> PathState:
+    """One path-tracing bounce over the full ray batch."""
+    n = state.o.shape[0]
+    depth_dim = depth * R.DIMS_PER_BOUNCE
+    hit = _closest(scene, cfg, state.o, state.d)
+
+    # miss → constant environment, path dies
+    miss = state.alive & ~hit.hit
+    le_env = eval_envmap(scene.env, state.d)
+    radiance = state.radiance + torch.where(miss[..., None], state.beta * le_env, 0.0)
+    alive = state.alive & hit.hit
+
+    wo = -state.d
+    mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64))
+    if scene.emissive is not None:
+        # directly-hit emitter, MIS-weighted against the NEE estimator
+        # (weight 1 after delta bounces and the camera)
+        cos_l = torch.abs(dot(state.d, hit.normal))
+        pdf_hit = (
+            sqr(hit.t)
+            / torch.clamp(cos_l * scene.emissive.area, min=1e-12)
+            * (1.0 / scene.num_lights)
+        )
+        w_em = torch.where(
+            state.prev_delta,
+            1.0,
+            sqr(state.prev_pdf)
+            / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_hit), min=1e-24),
+        )
+        radiance = radiance + torch.where(
+            alive[..., None], state.beta * mat.emission * w_em[..., None], 0.0
+        )
+    nee = _nee(scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside)
+    radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
+
+    u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
+    uc = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.BSDF_UC)
+    bs = sample_bsdf(
+        mat, wo, hit.normal, hit.normal, u1, u2, uc, state.inside, ft=cfg.features
+    )
+
+    valid = bs.pdf > 0.0
+    beta = state.beta * torch.where(
+        valid[..., None], bs.f_cos / torch.clamp(bs.pdf, min=1e-12)[..., None], 1.0
+    )
+    alive = alive & valid
+    o_new = offset_ray_origin(hit.pos, hit.error, hit.normal, bs.wi)
+    inside = state.inside ^ (bs.refract & alive)
+    eta_scale = torch.where(
+        bs.refract & alive, state.eta_scale * sqr(bs.eta), state.eta_scale
+    )
+
+    # russian roulette on β·∏η² from rr_start_depth on
+    rr_beta = max_component(beta) * eta_scale
+    u_rr = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.RR)
+    q = torch.clamp(1.0 - rr_beta, min=0.0)
+    do_rr = (rr_beta < 1.0) & (depth >= cfg.rr_start_depth)
+    killed = do_rr & (u_rr < q)
+    survived = torch.where(
+        do_rr & ~killed, 1.0 / torch.clamp(1.0 - q, min=1e-6), 1.0
+    )
+    beta = beta * survived[..., None]
+    alive = alive & ~killed
+
+    a3 = alive[..., None]
+    return PathState(
+        o=torch.where(a3, o_new, state.o),
+        d=torch.where(a3, bs.wi, state.d),
+        beta=torch.where(a3, beta, state.beta),
+        radiance=radiance,
+        alive=alive,
+        inside=inside,
+        eta_scale=eta_scale,
+        prev_pdf=torch.where(alive, bs.pdf, state.prev_pdf),
+        prev_delta=torch.where(alive, bs.delta, state.prev_delta),
+    )
+
+
+def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, device="cuda"):
+    """Trace one sample per ray for rays (o, d) → radiance (N,3).
+
+    ``px, py`` are int64 pixel coordinates (RNG keys in [0, 2^32)),
+    ``sample`` the global sample index (int or (N,) int64 tensor). Every
+    input moves to ``device``.
+    """
+    _validate(cfg)
+    if cfg.env_nee:
+        raise NotImplementedError("envmap NEE is not ported yet (slice 5)")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    px, py, o, d = (x.to(dev) for x in (px, py, o, d))
+    if torch.is_tensor(sample):
+        sample = sample.to(dev)
+    sampler = R.Sampler(cfg.sampler, cfg.seed)
+    state = init_path_state(o.shape[0], o, d)
+    for depth in range(cfg.max_depth):
+        state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
+    return state.radiance
+
+
+def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
+    """Render ``nspp`` samples for every pixel → (nspp, H, W, 3) radiance,
+    or (H, W, 3) when nspp == 1. The scene's device is the render's."""
+    dev = scene.device
+    pix = pixel_centers(width, height, dev)
+    if nspp > 1:
+        pix = pix.repeat(nspp, 1)
+        sample = sample + torch.repeat_interleave(
+            torch.arange(nspp, dtype=torch.int64, device=dev), width * height
+        )
+    px = pix[:, 0].to(torch.int64)
+    py = pix[:, 1].to(torch.int64)
+    sampler = R.Sampler(cfg.sampler, cfg.seed)
+    u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
+    p_film = pix + torch.stack([u1, u2], dim=-1)
+    o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
+    if cfg.fused == "auto":
+        cfg = resolve_fused(scene, cfg)
+    if cfg.fused == "on":
+        from .megakernel_cuda import trace_paths_fused
+
+        radiance = trace_paths_fused(
+            scene, px, py, sample, o, d,
+            max_depth=cfg.max_depth, rr_start_depth=cfg.rr_start_depth,
+            seed=cfg.seed, sampler=cfg.sampler,
+        )
+    else:
+        radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=dev)
+    if nspp > 1:
+        return radiance.reshape(nspp, height, width, 3)
+    return radiance.reshape(height, width, 3)
+
+
+def render_progressive(scene: Scene, film: Film, cfg: MegakernelConfig, width, height, sample_offset, kspp, spp_per_pass: int = 1, device="cuda"):
+    """Accumulate ``kspp`` samples into the film starting at
+    ``sample_offset``; ``spp_per_pass`` samples are traced as one
+    flattened ray batch per pass and must divide ``kspp``."""
+    if kspp % spp_per_pass:
+        raise ValueError(f"kspp={kspp} not divisible by spp_per_pass={spp_per_pass}")
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    film = Film(*(x.to(dev) for x in film))
+    for k in range(0, kspp, spp_per_pass):
+        radiance = render_sample_batch(
+            scene, cfg, width, height, int(sample_offset) + k, nspp=spp_per_pass
+        )
+        if spp_per_pass > 1:
+            film = film_add_batch(film, radiance)
+        else:
+            film = film_add_sample(film, radiance)
+    return film
+
+
+def render(scene: Scene, width: int, height: int, spp: int, cfg: MegakernelConfig | None = None, kspp: int = 4, film: Film | None = None, progress_cb=None, spp_per_pass: int = 1, device="cuda"):
+    """Host-side progressive render loop (checkpointable between
+    batches of ``kspp`` samples)."""
+    dev = resolve_device(device)
+    scene = scene_to(scene, dev)
+    cfg = resolve_fused(scene, cfg or MegakernelConfig())
+    film = film if film is not None else film_new(height, width, dev)
+    done = int(film.n)
+    while done < spp:
+        batch = min(kspp, spp - done)
+        per_pass = spp_per_pass if batch % spp_per_pass == 0 else 1
+        film = render_progressive(
+            scene, film, cfg, width, height, done, batch, per_pass, device=dev
+        )
+        done += batch
+        if progress_cb is not None:
+            progress_cb(film, done)
+    return film

@@ -1,0 +1,262 @@
+"""Flat SoA scene (counterpart of the reference ``scene/types.py``):
+triangles as (v0, e0, e1) SoA, material/light tables and the camera
+transforms, as tensors on one device.
+
+Only the brute-force class is ported: scenes that would need a BVH
+(slice 2), a light tree, textures, shading normals, an HDR environment or
+instancing (slice 5) raise ``NotImplementedError``.
+
+``scene_from_arrays`` carries a reference ``Scene`` over: it takes the
+reference's fields flattened to numpy by dotted name (``"materials.albedo"``,
+``"lights.pos"``, ``"emissive.cdf"``, ...), so one scene can be rendered
+by both packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops.bsdf import MaterialTable, make_material_table
+from ..ops.camera import CameraConfig, camera_from_raster, world_from_camera
+from ..ops.envmap import EnvMap, constant_envmap, make_constant_envmap
+from ..ops.lights import (
+    POINT,
+    PORTED_LIGHT_TYPES,
+    SPOT,
+    EmissiveTable,
+    LightTable,
+    area_light,
+    make_emissive_table,
+    make_light_table,
+)
+
+# scenes at or above this many triangles get a BVH in the reference
+BVH_THRESHOLD = 512
+
+# scenes with at least this many finite light records get a light tree
+LIGHT_TREE_THRESHOLD = 16
+
+
+class Scene(NamedTuple):
+    """Device scene."""
+
+    tri_v0: torch.Tensor  # (T,3)
+    tri_e0: torch.Tensor  # (T,3) p1 - p0
+    tri_e1: torch.Tensor  # (T,3) p2 - p0
+    tri_mat: torch.Tensor  # (T,) int32 material id
+    materials: MaterialTable
+    lights: LightTable  # finite lights (NEE targets)
+    env: EnvMap  # constant environment
+    cam_from_raster: torch.Tensor  # (4,4)
+    world_from_cam: torch.Tensor  # (4,4)
+    emissive: Optional[EmissiveTable] = None  # area-light triangle set
+
+    @property
+    def num_triangles(self) -> int:
+        return self.tri_v0.shape[0]
+
+    @property
+    def num_lights(self) -> int:
+        return self.lights.ltype.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+
+def scene_to(scene: Scene, device) -> Scene:
+    """The same scene with every tensor on ``device``."""
+    device = torch.device(device)
+    if scene.device == device:
+        return scene
+
+    def mv(x):
+        if x is None:
+            return None
+        if torch.is_tensor(x):
+            return x.to(device)
+        return type(x)(*(mv(f) for f in x))
+
+    return mv(scene)
+
+
+@dataclass
+class HostScene:
+    """Mutable host-side scene under construction."""
+
+    triangles: list = field(default_factory=list)  # (3,3) float arrays
+    tri_mat: list = field(default_factory=list)
+    materials: list = field(default_factory=list)  # bsdf factory dicts
+    lights: list = field(default_factory=list)  # light factory dicts
+    env_color: tuple = (0.0, 0.0, 0.0)
+    camera: CameraConfig = field(default_factory=CameraConfig)
+
+    def add_model(self, tris: Sequence, mat_id: int, uvs=None, normals=None):
+        if uvs is not None or normals is not None:
+            raise NotImplementedError(
+                "per-corner UVs and shading normals are not ported yet "
+                "(slice 5: scene breadth)"
+            )
+        for t in tris:
+            self.triangles.append(np.asarray(t, np.float32))
+            self.tri_mat.append(mat_id)
+
+    def add_material(self, mat: dict) -> int:
+        self.materials.append(mat)
+        return len(self.materials) - 1
+
+    def add_light(self, light: dict):
+        self.lights.append(light)
+
+
+def scene_from_host(
+    hs: HostScene,
+    use_bvh: Optional[bool] = None,
+    use_light_tree: Optional[bool] = None,
+    device="cuda",
+) -> Scene:
+    """Device scene from a HostScene (the reference's brute-force
+    branch): emissive materials become one AREA light row over an
+    emissive-triangle table."""
+    device = resolve_device(device)
+    tris = np.stack(hs.triangles).astype(np.float32)  # (T,3,3)
+    if use_bvh if use_bvh is not None else len(tris) >= BVH_THRESHOLD:
+        raise NotImplementedError(
+            f"{len(tris)} triangles need a BVH, which is not ported yet "
+            "(slice 2: mesh scenes)"
+        )
+    v0 = tris[:, 0]
+    e0 = tris[:, 1] - tris[:, 0]
+    e1 = tris[:, 2] - tris[:, 0]
+    tri_mat = np.asarray(hs.tri_mat, np.int32)
+
+    lights = list(hs.lights)
+    emission_by_mat = np.stack(
+        [
+            np.broadcast_to(
+                np.asarray(m.get("emission", (0.0,) * 3), np.float32), (3,)
+            )
+            for m in hs.materials
+        ]
+    ) if hs.materials else np.zeros((0, 3), np.float32)
+    emissive = None
+    n_emissive = 0
+    if len(emission_by_mat) and emission_by_mat.max() > 0:
+        em_mask = emission_by_mat[tri_mat].max(axis=1) > 0
+        if em_mask.any():
+            emissive = make_emissive_table(
+                v0[em_mask], e0[em_mask], e1[em_mask],
+                emission_by_mat[tri_mat[em_mask]], device=device,
+            )
+            n_emissive = int(em_mask.sum())
+            lights = lights + [area_light()]
+    # NEE needs at least one light row; a zero-intensity point light is a
+    # no-op filler
+    if not lights:
+        lights = [dict(ltype=POINT, color=(0.0, 0.0, 0.0))]
+
+    n_finite = (
+        sum(1 for li in lights if li.get("ltype", POINT) in (POINT, SPOT))
+        + n_emissive
+    )
+    if use_light_tree if use_light_tree is not None else n_finite >= LIGHT_TREE_THRESHOLD:
+        raise NotImplementedError(
+            f"{n_finite} finite lights need a light tree, which is not "
+            "ported yet (slice 5: scene breadth); pass use_light_tree=False "
+            "for uniform selection"
+        )
+
+    cam = hs.camera
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return Scene(
+        tri_v0=t(v0),
+        tri_e0=t(e0),
+        tri_e1=t(e1),
+        tri_mat=t(tri_mat),
+        materials=make_material_table(hs.materials, device),
+        lights=make_light_table(lights, device),
+        env=constant_envmap(hs.env_color, device),
+        cam_from_raster=t(
+            camera_from_raster(
+                cam.focal_length_mm, cam.sensor_height_mm, cam.width, cam.height
+            )
+        ),
+        world_from_cam=t(world_from_camera(cam.direction, cam.position)),
+        emissive=emissive,
+    )
+
+
+# reference Scene fields outside this slice, and the slice that ports them
+_LATER = {
+    "bvh": "slice 2: mesh scenes",
+    "light_tree": "slice 5: scene breadth (light tree)",
+    "tri_emrec": "slice 5: scene breadth (light tree)",
+    "textures": "slice 5: scene breadth (textures)",
+    "tri_uv": "slice 5: scene breadth (textures)",
+    "tri_uvdens": "slice 5: scene breadth (textures)",
+    "tri_ns": "slice 5: scene breadth (shading normals)",
+    "instances": "slice 5: scene breadth (instancing)",
+}
+
+
+def scene_from_arrays(fields: dict, device) -> Scene:
+    """Port's Scene from a reference Scene flattened to numpy by dotted
+    field name. Fields of features outside this slice raise."""
+    device = resolve_device(device)
+    for key in fields:
+        top = key.split(".")[0]
+        if top in _LATER:
+            raise NotImplementedError(
+                f"scene field {key!r} is not ported yet ({_LATER[top]})"
+            )
+    f = {k: np.asarray(v) for k, v in fields.items()}
+    for tex in ("albedo_tex", "rough_tex", "normal_tex"):
+        key = f"materials.{tex}"
+        if key in f and np.any(f[key] >= 0):
+            raise NotImplementedError(
+                "textured materials are not ported yet (slice 5: scene breadth)"
+            )
+    ltype = f["lights.ltype"].astype(np.int32)
+    if not set(ltype.tolist()) <= set(PORTED_LIGHT_TYPES):
+        raise NotImplementedError(
+            "directional and environment light rows are not ported yet "
+            "(slice 5: scene breadth)"
+        )
+    t = lambda a, dt=np.float32: torch.as_tensor(np.array(a, dt), device=device)  # noqa: E731
+
+    materials = MaterialTable(
+        *(
+            t(f[f"materials.{name}"], np.int32 if name == "mtype" else np.float32)
+            for name in MaterialTable._fields
+        )
+    )
+    lights = LightTable(
+        *(
+            t(f[f"lights.{name}"], np.int32 if name == "ltype" else np.float32)
+            for name in LightTable._fields
+        )
+    )
+    emissive = None
+    if "emissive.v0" in f:
+        emissive = EmissiveTable(
+            *(t(f[f"emissive.{name}"]) for name in EmissiveTable._fields)
+        )
+    return Scene(
+        tri_v0=t(f["tri_v0"]),
+        tri_e0=t(f["tri_e0"]),
+        tri_e1=t(f["tri_e1"]),
+        tri_mat=t(f["tri_mat"], np.int32),
+        materials=materials,
+        lights=lights,
+        env=make_constant_envmap(
+            f["env.image"], f["env.rotation"], f["env.scale"], device
+        ),
+        cam_from_raster=t(f["cam_from_raster"]),
+        world_from_cam=t(f["world_from_cam"]),
+        emissive=emissive,
+    )

@@ -1,0 +1,55 @@
+"""Run configuration of the CLI (counterpart of the reference
+``utils/config.py``): width/height/spp/kspp, sampler, depth, seed,
+device, checkpoint and partial-image dumps."""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass
+
+
+@dataclass
+class RunConfig:
+    scene: str = "cornell"  # only the procedural Cornell box is ported
+    out: str = "out/render.png"
+    width: int = 256
+    height: int = 256
+    spp: int = 128
+    kspp: int = 8  # samples per progressive batch
+    max_depth: int = 5
+    sampler: str = "hash"
+    seed: int = 0
+    device: str = "cuda"  # cuda | cpu
+    save_partial: bool = False  # dump mean/MSE images every batch
+    log_level: str = "info"
+    checkpoint: str = ""  # resume/persist film state (.npz)
+
+
+def parse_args(argv=None) -> RunConfig:
+    p = argparse.ArgumentParser(
+        prog="dtpt-render-torch",
+        description="Path tracer, PyTorch + CUDA port (Cornell box)",
+    )
+    d = RunConfig()
+    p.add_argument("--scene", default=d.scene, help="'cornell'")
+    p.add_argument("--out", default=d.out, help="output PNG path")
+    p.add_argument("--width", type=int, default=d.width)
+    p.add_argument("--height", type=int, default=d.height)
+    p.add_argument("--spp", type=int, default=d.spp)
+    p.add_argument("--kspp", type=int, default=d.kspp, help="samples per batch")
+    p.add_argument("--max-depth", type=int, default=d.max_depth)
+    p.add_argument("--sampler", choices=["hash"], default=d.sampler)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--device", choices=["cuda", "cpu"], default=d.device)
+    p.add_argument("--save-partial", action="store_true")
+    p.add_argument("--log-level", default=d.log_level,
+                   choices=["debug", "info", "warning", "error"])
+    p.add_argument("--checkpoint", default=d.checkpoint,
+                   help="film checkpoint .npz to resume from / save to")
+    a = p.parse_args(argv)
+    return RunConfig(
+        scene=a.scene, out=a.out, width=a.width, height=a.height, spp=a.spp,
+        kspp=a.kspp, max_depth=a.max_depth, sampler=a.sampler, seed=a.seed,
+        device=a.device, save_partial=a.save_partial, log_level=a.log_level,
+        checkpoint=a.checkpoint,
+    )

@@ -1,0 +1,39 @@
+"""The port's CLI renders the Cornell box on the CPU and writes both PNGs;
+``--checkpoint`` resumes a film."""
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_optix_pathtracing_tpu_torch.utils import cli
+from cuda_optix_pathtracing_tpu_torch.utils.checkpoint import load_film
+from cuda_optix_pathtracing_tpu_torch.utils.imageio import read_png
+
+torch.set_num_threads(2)
+
+ARGS = ["--scene", "cornell", "--device", "cpu", "--width", "16", "--height", "16",
+        "--max-depth", "3", "--kspp", "2", "--log-level", "warning"]
+
+
+def test_cli_writes_pngs(tmp_path):
+    out = tmp_path / "img" / "render.png"
+    assert cli.main(ARGS + ["--spp", "2", "--out", str(out)]) == 0
+    mean = read_png(str(out))
+    err = read_png(str(tmp_path / "img" / "render_sqrt_mse.png"))
+    assert mean.shape == (16, 16, 3) and err.shape == (16, 16, 3)
+    assert mean.dtype == np.uint8 and mean.mean() > 0
+
+
+def test_cli_checkpoint_resumes(tmp_path):
+    ck = str(tmp_path / "film.npz")
+    out = str(tmp_path / "r.png")
+    assert cli.main(ARGS + ["--spp", "2", "--out", out, "--checkpoint", ck]) == 0
+    film, seed = load_film(ck)
+    assert float(film.n) == 2 and seed == 0
+    assert cli.main(ARGS + ["--spp", "4", "--out", out, "--checkpoint", ck]) == 0
+    assert float(load_film(ck)[0].n) == 4
+
+
+def test_cli_refuses_unported_scenes(tmp_path):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli.main(ARGS + ["--scene", "cornell-mesh", "--out", str(tmp_path / "x.png")])
