@@ -3,23 +3,43 @@
 
     python3 chip_smoke.py
 
+Two scenes, each down both routes of the render:
+
+- the Cornell box (26 triangles, brute force): the fused kernel
+  ``pt_fused_bruteforce`` and, with ``fused="off"``, the closest-hit and
+  any-hit kernels ``closest_bruteforce`` and ``anyhit_bruteforce``;
+- the mesh Cornell box of ``bench.py``'s second leg
+  (``cornell_box_mesh(256, 256, subdiv=64)``: 16,138 triangles in 23,568
+  packed rows, a 432-node BVH): with ``fused="off"`` the sorted wavefront,
+  whose queries go to the traversal kernels ``bvh_closest`` and
+  ``bvh_anyhit``; with ``fused="on"`` the fused kernel's BVH mode
+  ``pt_fused_bvh``.
+
 Phases (each fails loudly; there is no CPU fallback):
 
-1. card and build: the card's name and power limit, then every kernel of
-   the main path built from ``cuda_optix_pathtracing_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once), with ptxas' register/spill lines;
+1. card and build: the card's name and power limit, every CUDA source
+   built from ``cuda_optix_pathtracing_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once) beside the ``g++`` build of the BVH builder, with
+   ptxas' register/spill lines;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, to the tolerances stated below;
-3. the main path: ``render(cornell_box(256, 256), 256, 256, spp=64)`` with
-   the default config (fused kernel), the CLI at its defaults (fused
-   kernel, 8 spp here), then ``render`` at 8 spp with ``fused="off"``
-   (closest-hit and any-hit kernels); launch counters are zeroed just
-   before and read just after each run;
-4. timing lines: each kernel's device time per launch (torch.profiler),
+   paths' shapes, to the tolerances stated below (the mesh kernels also at
+   the main path's own launches, in phase 4);
+3. the main paths, launch counters zeroed just before and read just after
+   each run: ``render(cornell_box)`` at 64 spp (fused kernel), the CLI
+   (8 spp), ``render`` at 8 spp with ``fused="off"``; then the bench's mesh
+   leg, ``render(mesh, spp=16, kspp=16, spp_per_pass=16)`` with
+   ``fused="off"`` and with ``fused="on"``, and the CLI on ``cornell-mesh``;
+4. the mesh kernels against their plain versions at the main path's own
+   launches, recorded from one more render of each route: kernel 4 at a
+   1,048,576-ray launch (sorted, with parked dead rays), kernel 5 at the
+   1,048,576-path launch (every 8th path held to ``trace_paths``); then
+   timing lines: each kernel's device time per launch (torch.profiler),
    the wrapper call's time (CUDA events), its plain version's time,
-   launches per spp and its bound; the Mpaths/s of repeated renders and
-   one traced render's device-busy share; then one JSON line with every
-   kernel, and as the last line ``{"ok": true, "device": ...}``.
+   launches per spp and its bound; the Mpaths/s of repeated renders of
+   both scenes and routes, and of the ``fused="off"`` route with and
+   without the ray sort and Morton pixel order; traced renders'
+   device-busy shares; then one JSON line with every kernel, and as the
+   last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -32,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 FP32_FLOPS = 67e12  # non-tensor FP32
@@ -46,11 +67,22 @@ SPP_CLI = 8
 RENDER_REPEATS = 4
 PARITY_SPP = 4
 N_RAYS = W * H * PARITY_SPP
+# the mesh leg of bench.py: subdivision 64, 16 spp traced as one pass
+MESH_SUBDIV = 64
+MESH_SPP = 16
+MESH_PARITY_STRIDE = 8  # kernel 5 at its main-path launch: every 8th path
+MESH_CLI_SPP = 4
 # flop model of bench.py: ~45 flops per ray-triangle test, ~800 per
-# shaded hit. The bounds take the work this run's data needs (tests made,
-# hits shaded), counted on the plain versions
+# shaded hit; a BVH slab test of one child box: 6 subtractions, 6
+# multiplies, 6 min/max to order the slab ends, 3 max for tn, 3 min for
+# tf and the compare. The bounds take the work this run's data needs
+# (tests made, boxes tested, hits shaded), counted on the plain versions
+# or, for traversals, on traverse_packed_ref over a sample of the rays
 MT_FLOPS = 45
 SHADE_FLOPS = 800
+SLAB_FLOPS = 25
+BOUND_SAMPLE = 2048
+PROFILE_MARGIN_S = 0.02  # idle card at each end of a profiler session
 
 
 def card_line() -> str:
@@ -62,13 +94,16 @@ def card_line() -> str:
 
 
 def warm_up(fn, seconds: float = 0.3) -> None:
-    """Call ``fn`` for ``seconds`` so the card leaves its idle clocks."""
+    """Call ``fn`` for ``seconds`` (at least once) so the card leaves its
+    idle clocks."""
     import torch
 
     t_end = time.perf_counter() + seconds
-    while time.perf_counter() < t_end:
+    while True:
         fn()
         torch.cuda.synchronize()
+        if time.perf_counter() >= t_end:
+            return
 
 
 def cuda_ms(fn, iters: int, reps: int = 5) -> float:
@@ -93,15 +128,20 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
 
 def profiled(fn):
     """Run ``fn`` once under torch.profiler (CPU and CUDA activity) →
-    (host seconds, key_averages). Device times come from CUPTI."""
+    (host seconds, key_averages). Device times come from CUPTI. The card
+    is idle for ``PROFILE_MARGIN_S`` after the session starts and before
+    it stops, so no kernel of ``fn`` lies near the edges of its window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
     return wall, prof.key_averages()
 
 
@@ -111,11 +151,24 @@ def device_rows(rows):
     return [e for e in rows if e.device_type == DeviceType.CUDA]
 
 
-def kernel_ms(fn, iters: int, kernel: str) -> float:
-    """Device time per launch of the CUDA kernel whose name contains
-    ``kernel``, from the profiler over ``iters`` calls of ``fn`` after
-    warm-up. CUDA events around the calls would time the host instead:
-    the wrappers' small PyTorch ops and syncs outlast the kernel."""
+def is_kernel(key: str, kernel) -> bool:
+    """Does the profiler's kernel name ``key`` hold every part of
+    ``kernel`` (a string or a tuple of strings)?"""
+    parts = (kernel,) if isinstance(kernel, str) else kernel
+    return all(p in key for p in parts)
+
+
+def kernel_ms(fn, iters: int, kernel, per_call: int = 1) -> float:
+    """Device time per launch of the CUDA kernel named by ``kernel``
+    (``is_kernel``), from the profiler over ``iters`` calls of ``fn`` (each
+    launching it ``per_call`` times) after warm-up. CUDA events around the
+    calls would time the host instead: the wrappers' small PyTorch ops and
+    syncs outlast the kernel.
+
+    The profiler may lose a kernel's record now and then (one of 20 in
+    one run on an H100), so the time is the mean over the records it
+    kept. A count above the launches made would mean the name matched
+    another kernel, and fails, as does a count of 0."""
     warm_up(fn)
 
     def run():
@@ -123,10 +176,30 @@ def kernel_ms(fn, iters: int, kernel: str) -> float:
             fn()
 
     _, rows = profiled(run)
-    rows = [e for e in device_rows(rows) if kernel in e.key]
+    rows = [e for e in device_rows(rows) if is_kernel(e.key, kernel)]
     count = sum(e.count for e in rows)
-    check(count == iters, f"profiler saw {count} launches of {kernel} in {iters} calls")
+    made = iters * per_call
+    check(0 < count <= made,
+          f"profiler saw {count} of the {made} launches of {kernel} in {iters} calls"
+          + ("" if count == made else f" (lost {made - count} records; timed on the rest)"))
     return sum(e.self_device_time_total for e in rows) / 1e3 / count
+
+
+def traced_render(fn, spp: int, kernels: dict):
+    """One render under the profiler → (device-busy seconds, {name:
+    (launches, device seconds)} of ``kernels`` (name → ``is_kernel`` part),
+    host kernel launches and stream syncs), per ``spp``."""
+    wall, rows = profiled(fn)
+    dev_rows = device_rows(rows)
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
+    per_kernel = {
+        name: (sum(e.count for e in dev_rows if is_kernel(e.key, k)),
+               sum(e.self_device_time_total for e in dev_rows if is_kernel(e.key, k)) / 1e6)
+        for name, k in kernels.items()
+    }
+    n_launch = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
+    n_sync = sum(e.count for e in rows if e.key == "cudaStreamSynchronize")
+    return busy / spp, per_kernel, n_launch / spp, n_sync / spp, wall / spp
 
 
 def bound(flops: float, nbytes: float):
@@ -166,19 +239,19 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
         count["tests"] += int(state.alive.sum()) * n_tris
         return bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
 
-    def counting_nee(scene, cfg, *args):
+    def counting_nee(scene, cfg, *args, **kw):
         hit = args[5]
         shaded = live["alive"] & hit.hit
         count["hits"] += int(shaded.sum())
         shadow = {}
 
-        def unoccluded(scene, cfg, so, sd, t_max):
+        def unoccluded(scene, cfg, so, sd, t_max, alive=None):
             shadow["rays"] = (so, sd, t_max)
             return torch.zeros(so.shape[0], dtype=torch.bool, device=so.device)
 
         MK._any = unoccluded
         try:
-            free = nee(scene, cfg, *args)
+            free = nee(scene, cfg, *args, **kw)
         finally:
             MK._any = any_hit
         so, sd, t_max = shadow["rays"]
@@ -186,7 +259,7 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
         count["tests"] += first_occluder_tests(
             so[cast], sd[cast], scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max[cast]
         )
-        return nee(scene, cfg, *args)
+        return nee(scene, cfg, *args, **kw)
 
     MK.bounce_step, MK._nee = counting_bounce, counting_nee
     try:
@@ -196,10 +269,234 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
     return count["hits"], count["tests"]
 
 
+def traversal_counts(scene, o, d, mode="closest", t_max=None):
+    """(boxes slab-tested, triangles tested) by the per-ray traversal of
+    these rays, walked by ``traverse_packed_ref`` (the kernels' numpy
+    oracle, step for step)."""
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import traverse_packed_ref
+
+    b = scene.bvh
+    tables = (b.box, b.meta, scene.tri_v0, scene.tri_e0, scene.tri_e1)
+    *_, c = traverse_packed_ref(*tables, o, d, mode, t_max)
+    return int(c["slabs"].sum()), int(c["tests"].sum())
+
+
+def traversal_work(scene, o, d, mode="closest", t_max=None):
+    """(flop, boxes per ray, triangles per ray) that traversing all N
+    rays needs: the counts of ``BOUND_SAMPLE`` of them, drawn with a fixed
+    seed, scaled to N."""
+    import numpy as np
+    import torch
+
+    n = o.shape[0]
+    pick = np.random.default_rng(0).choice(n, min(BOUND_SAMPLE, n), replace=False)
+    pick = torch.as_tensor(pick, device=o.device)
+    slabs, tests = traversal_counts(
+        scene, o[pick], d[pick], mode, None if t_max is None else t_max[pick]
+    )
+    k = len(pick)
+    return (slabs * SLAB_FLOPS + tests * MT_FLOPS) * n / k, slabs / k, tests / k
+
+
+def bvh_fused_work(MK, scene, cfg, px, py, sample, o, d):
+    """(hits shaded, boxes slab-tested, triangles tested) that the fused
+    BVH kernel's paths need, counted on a run of its plain version
+    ``MK.trace_paths`` over the same paths: per bounce, every live path's
+    closest-hit traversal, and the shadow ray's any-hit traversal where
+    the light sample's contribution is non-zero (the rays the plain
+    integrator marks live for the BVH kernels), each walked by
+    ``traverse_packed_ref``."""
+    count = {"hits": 0, "slabs": 0, "tests": 0}
+    closest, any_hit = MK._closest, MK._any
+
+    def add(slabs_tests):
+        count["slabs"] += slabs_tests[0]
+        count["tests"] += slabs_tests[1]
+
+    def counting_closest(scene, cfg, o, d, alive=None):
+        hit = closest(scene, cfg, o, d, alive=alive)
+        add(traversal_counts(scene, o[alive], d[alive]))
+        count["hits"] += int((hit.hit & alive).sum())
+        return hit
+
+    def counting_any(scene, cfg, o, d, t_max, alive=None):
+        add(traversal_counts(scene, o[alive], d[alive], "any", t_max[alive]))
+        return any_hit(scene, cfg, o, d, t_max, alive=alive)
+
+    MK._closest, MK._any = counting_closest, counting_any
+    try:
+        MK.trace_paths(scene, cfg, px, py, sample, o, d, device=o.device)
+    finally:
+        MK._closest, MK._any = closest, any_hit
+    return count["hits"], count["slabs"], count["tests"]
+
+
+def camera_rays(scene, spp: int, morton: bool = False):
+    """Camera rays of samples 0..spp-1 for every pixel, as
+    ``render_sample_batch`` makes them (pixel order Morton or row-major)
+    → (px, py, sample, o, d)."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.ops import rng as R
+    from cuda_optix_pathtracing_tpu_torch.ops.camera import generate_rays, pixel_centers
+    from cuda_optix_pathtracing_tpu_torch.ops.morton import morton_pixel_order
+
+    dev = scene.device
+    pix = pixel_centers(W, H, dev)
+    if morton:
+        pix = pix[torch.as_tensor(morton_pixel_order(W, H), device=dev)]
+    pix = pix.repeat(spp, 1)
+    sample = torch.repeat_interleave(torch.arange(spp, dtype=torch.int64, device=dev), W * H)
+    px = pix[:, 0].to(torch.int64)
+    py = pix[:, 1].to(torch.int64)
+    u1, u2 = R.Sampler("hash", 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
+    o, d = generate_rays(
+        pix + torch.stack([u1, u2], -1), scene.cam_from_raster, scene.world_from_cam
+    )
+    return px, py, sample, o, d
+
+
+def depth0_rays(MK, scene, cfg, px, py, sample, o, d):
+    """The live bounce rays (o, d) and the cast shadow rays (o, d, t_max)
+    of one bounce of a plain run of ``MK.bounce_step`` at depth 0."""
+    from cuda_optix_pathtracing_tpu_torch.ops import rng as R
+
+    shadow = {}
+    any_hit = MK._any
+
+    def recording(scene, cfg, so, sd, t_max, alive=None):
+        shadow["rays"] = (so, sd, t_max, alive)
+        return any_hit(scene, cfg, so, sd, t_max, alive=alive)
+
+    MK._any = recording
+    try:
+        st = MK.bounce_step(scene, cfg, R.Sampler("hash", 0), px, py, sample, 0,
+                            MK.init_path_state(o.shape[0], o, d))
+    finally:
+        MK._any = any_hit
+    so, sd, t_max, cast = shadow["rays"]
+    return (st.o[st.alive], st.d[st.alive]), (so[cast], sd[cast], t_max[cast])
+
+
+def record_bvh_launches(MK, fn):
+    """Run ``fn`` with the integrator's view of the BVH kernels' module
+    (``MK.bvh_cuda``) shimmed to keep a copy of every launch's rays →
+    {"closest": [(o, d)], "any": [(o, d, t_max)]}. The wrappers themselves
+    stay in place, so their launch counts stay true."""
+    import types
+
+    import torch
+
+    rec = {"closest": [], "any": []}
+    BV = MK.bvh_cuda
+
+    def rec_closest(o, d, scene):
+        rec["closest"].append((o.clone(), d.clone()))
+        return BV.bvh_closest_raw(o, d, scene)
+
+    def rec_any(o, d, scene, t_max):
+        t = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                               (o.shape[0],))
+        rec["any"].append((o.clone(), d.clone(), t.clone()))
+        return BV.bvh_any_raw(o, d, scene, t_max)
+
+    MK.bvh_cuda = types.SimpleNamespace(bvh_closest_raw=rec_closest, bvh_any_raw=rec_any)
+    try:
+        fn()
+    finally:
+        MK.bvh_cuda = BV
+    return rec
+
+
+def record_fused_launches(MKC, fn):
+    """Run ``fn`` with the fused kernel's wrapper, which
+    ``render_sample_batch`` looks up in ``MKC`` (its module) at each call,
+    shimmed to keep a copy of every launch's inputs → [((px, py, sample,
+    o, d), keyword arguments)]. The wrapper itself runs, with its module
+    name restored for the call (it counts its launches on itself, looked
+    up by that name), so its launch count stays true."""
+    import torch
+
+    rec = []
+    fused = MKC.trace_paths_fused
+
+    def rec_fused(scene, px, py, sample, o, d, **kw):
+        sample_c = sample.clone() if torch.is_tensor(sample) else sample
+        rec.append(((px.clone(), py.clone(), sample_c, o.clone(), d.clone()), kw))
+        MKC.trace_paths_fused = fused
+        try:
+            return fused(scene, px, py, sample, o, d, **kw)
+        finally:
+            MKC.trace_paths_fused = rec_fused
+
+    MKC.trace_paths_fused = rec_fused
+    try:
+        fn()
+    finally:
+        MKC.trace_paths_fused = fused
+    return rec
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}")
+
+
+def check_closest(label, tk, ik, tp, ip) -> float:
+    """Kernel (tk, ik) against plain (tp, ip) closest hits: the same rays
+    hit, t within 1e-5 relative, rows equal except on ties (two t within
+    1e-6 relative, shared edges) → max abs t error."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import BIG_T
+
+    torch.cuda.synchronize()
+    both = (tk < BIG_T) & (tp < BIG_T)
+    dt = (tk - tp).abs()
+    rel = dt / tp.abs().clamp(min=1e-30)
+    tie = rel <= 1e-6
+    check(bool(((ik == ip) | tie).all()),
+          f"{label}: rows equal wherever the two t differ by > 1e-6 rel")
+    check(bool(((tk < BIG_T) == (tp < BIG_T)).all()) and float(rel[both].max()) <= 1e-5,
+          f"{label}: same hits ({int(both.sum())} of {tk.shape[0]}), t within 1e-5 relative "
+          f"(max rel {float(rel[both].max()):.2e}, max abs {float(dt[both].max()):.2e})")
+    return float(dt[both].max())
+
+
+def check_parity(label, rad_k, rad_p, spp: int) -> float:
+    """The reference parity bar on per-pixel means over ``spp`` samples →
+    max abs pixel difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    acc_k = rad_k.reshape(spp, -1, 3).sum(0)
+    acc_p = rad_p.reshape(spp, -1, 3).sum(0)
+    diff = (acc_k - acc_p).abs() / spp
+    check(bool(torch.isfinite(rad_k).all()), f"{label}: finite radiance")
+    check(float(diff.mean()) < 1e-4,
+          f"{label} vs trace_paths: mean abs diff {float(diff.mean()):.2e} < 1e-4")
+    frac = float((diff.max(-1).values > 1e-3).float().mean())
+    check(frac < 0.005, f"{label} vs trace_paths: {frac:.5f} of pixels off by > 1e-3 (< 0.005)")
+    return float(diff.max())
+
+
+def check_means_agree(label, film_a, film_b) -> None:
+    """Image means per channel agree within Monte Carlo noise: 5 standard
+    errors, from each film's per-pixel sample variance."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.ops.film import film_variance
+
+    npix = W * H
+    m_a = film_a.mean.reshape(-1, 3).mean(0)
+    m_b = film_b.mean.reshape(-1, 3).mean(0)
+    se2_a = film_variance(film_a).reshape(-1, 3).sum(0) / float(film_a.n) / npix**2
+    se2_b = film_variance(film_b).reshape(-1, 3).sum(0) / float(film_b.n) / npix**2
+    tol = 5.0 * torch.sqrt(se2_a + se2_b)
+    check(bool(((m_a - m_b).abs() <= tol).all()),
+          f"{label} image means agree within 5 sigma: "
+          f"{m_a.tolist()} vs {m_b.tolist()}, tol {tol.tolist()}")
 
 
 def main() -> int:
@@ -212,39 +509,49 @@ def main() -> int:
 
     import numpy as np
 
+    from cuda_optix_pathtracing_tpu_torch import native
     from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
     from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
     from cuda_optix_pathtracing_tpu_torch.ops import _cuda_build
-    from cuda_optix_pathtracing_tpu_torch.ops import rng as R
-    from cuda_optix_pathtracing_tpu_torch.ops.camera import generate_rays, pixel_centers
-    from cuda_optix_pathtracing_tpu_torch.ops.film import (
-        film_sqrt_mse,
-        film_variance,
-        srgb_encode,
-        to_uint8,
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops.film import film_sqrt_mse, srgb_encode, to_uint8
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import (
+        intersect_any,
+        intersect_closest_raw,
     )
-    from cuda_optix_pathtracing_tpu_torch.ops.intersect import BIG_T
     from cuda_optix_pathtracing_tpu_torch.ops.intersect_cuda import (
         any_plain,
         anyhit_bruteforce,
         closest_bruteforce,
         closest_plain,
     )
-    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh
     from cuda_optix_pathtracing_tpu_torch.utils import cli
     from cuda_optix_pathtracing_tpu_torch.utils.imageio import write_png
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_script = time.perf_counter()
 
     # ---- 1. card and build ------------------------------------------------
     card = card_line()
     print(card)
     tag = f"[{card}]"
-    t0 = time.perf_counter()
-    _cuda_build.build_all(["intersect", "megakernel"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, parallel)")
-    for name in ("intersect", "megakernel"):
+    sources = ["intersect", "megakernel", "bvh"]
+
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(timed, native.build)
+        t_nvcc = timed(lambda: _cuda_build.build_all(sources))
+        t_gxx = gxx.result()
+    print(f"build: nvcc {t_nvcc:.1f} s (sm_90a, {len(sources)} sources in parallel); "
+          f"g++ BVH builder {t_gxx:.1f} s, alongside")
+    for name in sources:
         for line in _cuda_build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -252,18 +559,15 @@ def main() -> int:
     scene = cornell_box(W, H, device=dev)
     v0, e0, e1 = scene.tri_v0, scene.tri_e0, scene.tri_e1
     n_tris = scene.num_triangles
+    t0 = time.perf_counter()
+    mesh = cornell_box_mesh(W, H, subdiv=MESH_SUBDIV, device=dev)
+    mv0, me0, me1 = mesh.tri_v0, mesh.tri_e0, mesh.tri_e1
+    print(f"mesh scene (subdiv {MESH_SUBDIV}): {int((mesh.bvh.perm >= 0).sum())} triangles in "
+          f"{mesh.num_triangles} packed rows, {mesh.bvh.num_nodes} nodes, depth "
+          f"{mesh.bvh.depth}, built in {time.perf_counter() - t0:.2f} s")
 
     # camera rays of PARITY_SPP samples (the fused="off" path's first bounce)
-    pix = pixel_centers(W, H, dev).repeat(PARITY_SPP, 1)
-    sample = torch.repeat_interleave(
-        torch.arange(PARITY_SPP, dtype=torch.int64, device=dev), W * H
-    )
-    px = pix[:, 0].to(torch.int64)
-    py = pix[:, 1].to(torch.int64)
-    u1, u2 = R.Sampler("hash", 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
-    cam_o, cam_d = generate_rays(
-        pix + torch.stack([u1, u2], -1), scene.cam_from_raster, scene.world_from_cam
-    )
+    px, py, sample, cam_o, cam_d = camera_rays(scene, PARITY_SPP)
     # random rays through the box, from a fixed seed
     rs = np.random.default_rng(0)
     rnd_o = rs.uniform([-2.0, 0.0, -0.5], [2.0, 4.0, 2.0], (N_RAYS, 3))
@@ -280,19 +584,8 @@ def main() -> int:
     for label, o, d in (("camera", cam_o, cam_d), ("random", rnd_o, rnd_d)):
         tk, ik = closest_bruteforce(o, d, v0, e0, e1)
         tp, ip = closest_plain(o, d, v0, e0, e1)
-        torch.cuda.synchronize()
-        both = (tk < BIG_T) & (tp < BIG_T)
-        dt = (tk - tp).abs()
-        rel = dt / tp.abs().clamp(min=1e-30)
-        # indices agree except on ties: rays whose two best t are within
-        # 1e-6 relative (shared edges) may pick either triangle
-        tie = rel <= 1e-6
-        check(bool(((ik == ip) | tie).all()),
-              f"closest {label}: best_i equal wherever the two t differ by > 1e-6 rel")
-        check(bool(((tk < BIG_T) == (tp < BIG_T)).all()) and float(rel[both].max()) <= 1e-5,
-              f"closest {label}: same hits, t within 1e-5 relative "
-              f"(max rel {float(rel[both].max()):.2e}, max abs {float(dt[both].max()):.2e})")
-        err["closest"] = max(err.get("closest", 0.0), float(dt[both].max()))
+        e = check_closest(f"closest {label}", tk, ik, tp, ip)
+        err["closest"] = max(err.get("closest", 0.0), e)
         tm = t_max if label == "random" else torch.full_like(t_max, 3.0)
         ok_ = anyhit_bruteforce(o, d, v0, e0, e1, tm)
         op_ = any_plain(o, d, v0, e0, e1, tm)
@@ -304,29 +597,58 @@ def main() -> int:
     cfg_plain = MK.MegakernelConfig(max_depth=DEPTH, backend="torch", fused="off")
     rad_k = trace_paths_fused(scene, px, py, sample, cam_o, cam_d, max_depth=DEPTH)
     rad_p = MK.trace_paths(scene, cfg_plain, px, py, sample, cam_o, cam_d, device=dev)
-    torch.cuda.synchronize()
-    acc_k = rad_k.reshape(PARITY_SPP, H * W, 3).sum(0)
-    acc_p = rad_p.reshape(PARITY_SPP, H * W, 3).sum(0)
-    diff = (acc_k - acc_p).abs() / PARITY_SPP
-    check(bool(torch.isfinite(rad_k).all()), "fused: finite radiance")
-    check(float(diff.mean()) < 1e-4,
-          f"fused vs trace_paths: mean abs diff {float(diff.mean()):.2e} < 1e-4")
-    frac = float((diff.max(-1).values > 1e-3).float().mean())
-    check(frac < 0.005, f"fused vs trace_paths: {frac:.5f} of pixels off by > 1e-3 (< 0.005)")
-    err["fused"] = float(diff.max())
+    err["fused"] = check_parity("fused", rad_k, rad_p, PARITY_SPP)
 
-    # ---- 3. the main path --------------------------------------------------
-    print("phase 3: main path")
-    counters = (trace_paths_fused, closest_bruteforce, anyhit_bruteforce)
+    # the mesh scene: the traversal kernels on Morton-ordered camera rays and
+    # on the live bounce and cast shadow rays of one depth of a plain run
+    n1 = W * H
+    print(f"phase 2, mesh: traversal kernels against the plain sweep over "
+          f"{mesh.num_triangles} packed rows ({n1} rays per set)")
+    mpx1, mpy1, ms1, mo1, md1 = camera_rays(mesh, 1, morton=True)
+    mpx4, mpy4, ms4, mo4, md4 = camera_rays(mesh, 4, morton=True)
+    (bo, bd), (so, sd, stm) = depth0_rays(MK, mesh, cfg_plain, mpx4, mpy4, ms4, mo4, md4)
+    check(bo.shape[0] >= n1 and so.shape[0] >= n1,
+          f"depth 0 of a plain run over {mo4.shape[0]} paths: {bo.shape[0]} live bounce rays, "
+          f"{so.shape[0]} cast shadow rays (>= {n1} each)")
+    ray_sets = (
+        ("camera", mo1, md1, torch.full((n1,), 3.0, device=dev)),
+        ("bounce", bo[:n1], bd[:n1], torch.full((n1,), 3.0, device=dev)),
+        ("shadow", so[:n1], sd[:n1], stm[:n1]),
+    )
+    for label, o, d, tm in ray_sets:
+        tk, ik = BV.bvh_closest_raw(o, d, mesh)
+        tp, ip = intersect_closest_raw(o, d, mv0, me0, me1)
+        e = check_closest(f"bvh_closest {label}", tk, ik, tp, ip)
+        err["bvh_closest"] = max(err.get("bvh_closest", 0.0), e)
+        ok_ = BV.bvh_any_raw(o, d, mesh, tm) > 0
+        op_ = intersect_any(o, d, mv0, me0, me1, tm)
+        torch.cuda.synchronize()
+        n_diff = int((ok_ != op_).sum())
+        check(n_diff == 0, f"bvh_anyhit {label}: flags equal to the plain sweep's "
+              f"({int(op_.sum())} occluded, {n_diff} differ)")
+        err["bvh_anyhit"] = max(err.get("bvh_anyhit", 0.0), float(n_diff > 0))
+
+    # ---- 3. the main paths -------------------------------------------------
+    print("phase 3: main paths")
+    counters = (trace_paths_fused, closest_bruteforce, anyhit_bruteforce,
+                BV.bvh_closest_raw, BV.bvh_any_raw)
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
     main_scene = cornell_box(W, H)
-    torch.cuda.synchronize()
-    for c in counters:
-        c.launches = 0
+    zero()
     t0 = time.perf_counter()
     film_on = MK.render(main_scene, W, H, spp=SPP_FUSED)
     torch.cuda.synchronize()
     dt_on = time.perf_counter() - t0
-    launches_on = {c.__name__: c.launches for c in counters}
+    launches_on = read()
     print(f"  render fused: {launches_on}")
     check(launches_on["trace_paths_fused"] > 0, "default render went through the fused kernel")
     check(bool(torch.isfinite(film_on.mean).all()), "fused film finite")
@@ -338,53 +660,78 @@ def main() -> int:
             write_png(path, to_uint8(srgb_encode(img)).cpu().numpy())
         check(all(os.path.getsize(p) > 0 for p in paths), "wrote the mean and sqrt-MSE PNGs")
 
-    for c in counters:
-        c.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "cli.png")
-        rc = cli.main(["--scene", "cornell", "--out", out, "--spp", str(SPP_CLI),
-                       "--log-level", "warning"])
-        torch.cuda.synchronize()
-        launches_cli = {c.__name__: c.launches for c in counters}
-        print(f"  CLI --scene cornell --spp {SPP_CLI}: {launches_cli}")
-        check(rc == 0 and launches_cli["trace_paths_fused"] == SPP_CLI,
-              "the CLI rendered through the fused kernel, one launch per spp")
-        check(os.path.getsize(out) > 0
-              and os.path.getsize(os.path.join(tmp, "cli_sqrt_mse.png")) > 0,
-              "the CLI wrote the mean and sqrt-MSE PNGs")
+    def run_cli(scene_name: str, spp: int):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cli.png")
+            zero()
+            rc = cli.main(["--scene", scene_name, "--out", out, "--spp", str(spp),
+                           "--log-level", "warning"])
+            launches = read()
+            print(f"  CLI --scene {scene_name} --spp {spp}: {launches}")
+            check(rc == 0 and os.path.getsize(out) > 0
+                  and os.path.getsize(os.path.join(tmp, "cli_sqrt_mse.png")) > 0,
+                  f"the CLI on {scene_name} wrote the mean and sqrt-MSE PNGs")
+        return launches
 
-    for c in counters:
-        c.launches = 0
-    film_off = MK.render(main_scene, W, H, spp=SPP_OFF,
-                         cfg=MK.MegakernelConfig(fused="off"))
-    torch.cuda.synchronize()
-    launches_off = {c.__name__: c.launches for c in counters}
+    launches_cli = run_cli("cornell", SPP_CLI)
+    check(launches_cli["trace_paths_fused"] == SPP_CLI,
+          "the CLI rendered through the fused kernel, one launch per spp")
+
+    zero()
+    film_off = MK.render(main_scene, W, H, spp=SPP_OFF, cfg=MK.MegakernelConfig(fused="off"))
+    launches_off = read()
     print(f"  render fused='off': {launches_off}")
     check(launches_off["closest_bruteforce"] > 0 and launches_off["anyhit_bruteforce"] > 0,
           "fused='off' render went through the closest-hit and any-hit kernels")
     check(bool(torch.isfinite(film_off.mean).all()), "fused='off' film finite")
-    # image means per channel agree within Monte Carlo noise: 5 standard
-    # errors, from each film's per-pixel sample variance
-    npix = W * H
-    m_on = film_on.mean.reshape(-1, 3).mean(0)
-    m_off = film_off.mean.reshape(-1, 3).mean(0)
-    se2_on = film_variance(film_on).reshape(-1, 3).sum(0) / float(film_on.n) / npix**2
-    se2_off = film_variance(film_off).reshape(-1, 3).sum(0) / float(film_off.n) / npix**2
-    tol = 5.0 * torch.sqrt(se2_on + se2_off)
-    check(bool(((m_on - m_off).abs() <= tol).all()),
-          f"fused (64 spp) and fused='off' (8 spp) image means agree within 5 sigma: "
-          f"{m_on.tolist()} vs {m_off.tolist()}, tol {tol.tolist()}")
+    check_means_agree(f"fused ({SPP_FUSED} spp) and fused='off' ({SPP_OFF} spp)",
+                      film_on, film_off)
 
-    # ---- 4. timing at the main path's shapes -------------------------------
-    print(f"phase 4: timing {tag}")
-    n1 = W * H  # one sample per pixel per launch on the main path
+    # the bench's mesh leg: 16 spp traced as one pass, both routes
+    mesh_main = cornell_box_mesh(W, H, subdiv=MESH_SUBDIV)
+    mesh_kw = dict(spp=MESH_SPP, kspp=MESH_SPP, spp_per_pass=MESH_SPP)
+    cfg_moff = MK.MegakernelConfig(fused="off")
+    cfg_mon = MK.MegakernelConfig(fused="on")
+    zero()
+    t0 = time.perf_counter()
+    film_moff = MK.render(mesh_main, W, H, cfg=cfg_moff, **mesh_kw)
+    torch.cuda.synchronize()
+    dt_moff = time.perf_counter() - t0
+    launches_moff = read()
+    print(f"  render mesh fused='off' ({MESH_SPP} spp, one pass): {launches_moff}")
+    check(launches_moff["bvh_closest_raw"] == DEPTH and launches_moff["bvh_any_raw"] == DEPTH
+          and launches_moff["trace_paths_fused"] == 0,
+          f"the mesh wavefront went through the traversal kernels, closest and any-hit "
+          f"once per depth ({DEPTH}) in its one pass")
+    check(bool(torch.isfinite(film_moff.mean).all()) and float(film_moff.mean.mean()) > 0.0,
+          f"mesh fused='off' film finite, mean {float(film_moff.mean.mean()):.5f} > 0")
+
+    zero()
+    t0 = time.perf_counter()
+    film_mon = MK.render(mesh_main, W, H, cfg=cfg_mon, **mesh_kw)
+    torch.cuda.synchronize()
+    dt_mon = time.perf_counter() - t0
+    launches_mon = read()
+    print(f"  render mesh fused='on' ({MESH_SPP} spp, one pass): {launches_mon}")
+    check(launches_mon["trace_paths_fused"] == 1 and launches_mon["bvh_closest_raw"] == 0,
+          "the mesh render with fused='on' went through the fused BVH kernel, one launch")
+    check(bool(torch.isfinite(film_mon.mean).all()) and float(film_mon.mean.mean()) > 0.0,
+          f"mesh fused='on' film finite, mean {float(film_mon.mean.mean()):.5f} > 0")
+    check_means_agree("mesh fused='on' and fused='off'", film_mon, film_moff)
+
+    launches_mcli = run_cli("cornell-mesh", MESH_CLI_SPP)
+    check(launches_mcli["trace_paths_fused"] == MESH_CLI_SPP,
+          "the CLI on cornell-mesh took the fused BVH kernel (auto), one launch per spp")
+
+    # ---- 4. the main paths' own launches, and timing -----------------------
+    print(f"phase 4: the mesh kernels at the main path's own launches, and timing {tag}")
     o1, d1 = cam_o[:n1].contiguous(), cam_d[:n1].contiguous()
     px1, py1, s1 = px[:n1], py[:n1], sample[:n1]
     ro1, rd1, tm1 = rnd_o[:n1].contiguous(), rnd_d[:n1].contiguous(), t_max[:n1].contiguous()
 
     saved = {c: c.launches for c in counters}
-    # the main path's spread: repeated untraced renders, back to back,
-    # before any profiler session
+    # the main paths' spread: repeated untraced renders, back to back,
+    # before any profiler session; the two mesh routes in turns
     mpaths_rep = []
     for _ in range(RENDER_REPEATS):
         torch.cuda.synchronize()
@@ -392,43 +739,154 @@ def main() -> int:
         MK.render(main_scene, W, H, spp=SPP_FUSED)
         torch.cuda.synchronize()
         mpaths_rep.append(W * H * SPP_FUSED / (time.perf_counter() - t0) / 1e6)
+    mesh_first = {"off": W * H * MESH_SPP / dt_moff / 1e6, "on": W * H * MESH_SPP / dt_mon / 1e6}
+    mesh_rep = {"off": [], "on": []}
+    for route in ("off", "on", "on", "off"):
+        cfg_r = cfg_mon if route == "on" else cfg_moff
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MK.render(mesh_main, W, H, cfg=cfg_r, **mesh_kw)
+        torch.cuda.synchronize()
+        mesh_rep[route].append(W * H * MESH_SPP / (time.perf_counter() - t0) / 1e6)
+    # the fused="off" route with and without the ray sort and the Morton
+    # pixel order (sort_rays, pixel_order; auto = sorted, Morton): the four
+    # choices in turns, twice each. Each film must equal auto's bit for bit:
+    # the order of the rays changes no ray's result
+    variants = {(srt, order): MK.MegakernelConfig(fused="off", sort_rays=srt, pixel_order=order)
+                for srt in ("on", "off") for order in ("morton", "linear")}
+    var_rep = {key: [] for key in variants}
+    var_diff = {}
+    for key in list(variants) + list(variants)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film_v = MK.render(mesh_main, W, H, cfg=variants[key], **mesh_kw)
+        torch.cuda.synchronize()
+        var_rep[key].append(W * H * MESH_SPP / (time.perf_counter() - t0) / 1e6)
+        var_diff[key] = max(var_diff.get(key, 0.0),
+                            float((film_v.mean - film_moff.mean).abs().max()))
+    check(all(v == 0.0 for v in var_diff.values()),
+          f"fused='off' films with and without the ray sort and Morton order equal "
+          f"auto's bit for bit (max abs diffs {list(var_diff.values())})")
+
+    # the mesh kernels at the main path's own launches: every launch of one
+    # more render of each route (kernel 4: 5 closest-hit and 5 any-hit
+    # launches of 1,048,576 rays; kernel 5: one of 1,048,576 paths)
+    rec = record_bvh_launches(MK, lambda: MK.render(mesh_main, W, H, cfg=cfg_moff, **mesh_kw))
+    n_bvh = rec["closest"][0][0].shape[0]
+    recf = record_fused_launches(MKC, lambda: MK.render(mesh_main, W, H, cfg=cfg_mon, **mesh_kw))
+    check(len(recf) == 1 and recf[0][0][3].shape[0] == W * H * MESH_SPP,
+          f"recorded the mesh leg's one fused launch of {W * H * MESH_SPP} paths")
+    (fpx, fpy, fsample, fo, fd), fkw = recf[0]
+    rad_k = trace_paths_fused(mesh_main, fpx, fpy, fsample, fo, fd, **fkw)
+    # each path's radiance depends on its own inputs only, so a strided
+    # subset of the launch is held to the plain version on the same paths
+    sub = torch.arange(0, fo.shape[0], MESH_PARITY_STRIDE, device=dev)
+    cfg_fkw = MK.MegakernelConfig(backend="torch", fused="off", **fkw)
+    rad_p = MK.trace_paths(mesh_main, cfg_fkw, fpx[sub], fpy[sub], fsample[sub], fo[sub],
+                           fd[sub], device=dev)
+    err["fused_bvh"] = check_parity(
+        f"fused BVH at its main-path launch (every {MESH_PARITY_STRIDE}th of "
+        f"{fo.shape[0]} paths, {sub.shape[0]})", rad_k[sub], rad_p, MESH_SPP
+    )
+
+    def replay_closest():
+        for o, d in rec["closest"]:
+            BV.bvh_closest_raw(o, d, mesh_main)
+
+    def replay_any():
+        for o, d, tm in rec["any"]:
+            BV.bvh_any_raw(o, d, mesh_main, tm)
+
     calls = {
-        "fused": lambda: trace_paths_fused(scene, px1, py1, s1, o1, d1, max_depth=DEPTH),
-        "closest": lambda: closest_bruteforce(o1, d1, v0, e0, e1),
-        "anyhit": lambda: anyhit_bruteforce(ro1, rd1, v0, e0, e1, tm1),
+        "fused": (lambda: trace_paths_fused(scene, px1, py1, s1, o1, d1, max_depth=DEPTH), 1),
+        "closest": (lambda: closest_bruteforce(o1, d1, v0, e0, e1), 1),
+        "anyhit": (lambda: anyhit_bruteforce(ro1, rd1, v0, e0, e1, tm1), 1),
+        "bvh_closest": (replay_closest, len(rec["closest"])),
+        "bvh_anyhit": (replay_any, len(rec["any"])),
+        "fused_bvh": (lambda: trace_paths_fused(mesh, mpx1, mpy1, ms1, mo1, md1,
+                                                max_depth=DEPTH), 1),
     }
     kernel_names = {
-        "fused": "::pt_fused_bruteforce_kernel(",
+        "fused": ("::pt_fused_kernel<", "BruteGeo>"),
         "closest": "::closest_kernel(",
         "anyhit": "::anyhit_kernel(",
+        "bvh_closest": "::bvh_closest_kernel(",
+        "bvh_anyhit": "::bvh_anyhit_kernel(",
+        "fused_bvh": ("::pt_fused_kernel<", "BvhGeo>"),
     }
-    ms = {k: kernel_ms(fn, 20, kernel_names[k]) for k, fn in calls.items()}
-    call_ms = {k: cuda_ms(fn, 20) for k, fn in calls.items()}
+    ms = {k: kernel_ms(fn, 4 if per > 1 else 20, kernel_names[k], per)
+          for k, (fn, per) in calls.items()}
+    call_ms = {k: cuda_ms(fn, 4 if per > 1 else 20) / per for k, (fn, per) in calls.items()}
+    # kernel 4 against the plain sweep at the main path's depth-1 launches:
+    # sorted rays, the paths that ended at depth 0 parked last. The plain
+    # sweep is brute force over every packed row, so its time does not
+    # depend on which launch it runs; the output of its timed call is kept
+    o_c, d_c = rec["closest"][1]
+    o_a, d_a, tm_a = rec["any"][1]
+    plain_out = {}
+
+    def plain_closest():
+        plain_out["closest"] = intersect_closest_raw(o_c, d_c, mv0, me0, me1)
+
+    def plain_any():
+        plain_out["any"] = intersect_any(o_a, d_a, mv0, me0, me1, tm_a)
+
     plain_ms = {
         "fused": cuda_ms(lambda: MK.trace_paths(scene, cfg_plain, px1, py1, s1, o1, d1, device=dev), 1),
         "closest": cuda_ms(lambda: closest_plain(o1, d1, v0, e0, e1), 10),
         "anyhit": cuda_ms(lambda: any_plain(ro1, rd1, v0, e0, e1, tm1), 10),
+        "bvh_closest": cuda_ms(plain_closest, 1, reps=1),
+        "bvh_anyhit": cuda_ms(plain_any, 1, reps=1),
+        "fused_bvh": cuda_ms(lambda: MK.trace_paths(mesh, cfg_plain, mpx1, mpy1, ms1, mo1, md1,
+                                                    device=dev), 1, reps=1),
     }
+    for label, o, d in (("closest", o_c, d_c), ("any", o_a, d_a)):
+        n_dead = int((o[:, 0] == MK._DEAD_ORIGIN).sum())
+        print(f"  bvh {label} at the main path's depth-1 launch: {o.shape[0]} sorted rays, "
+              f"{n_dead} of them parked dead")
+    tk, ik = BV.bvh_closest_raw(o_c, d_c, mesh_main)
+    err["bvh_closest"] = max(err["bvh_closest"], check_closest(
+        "bvh_closest at its main-path launch", tk, ik, *plain_out["closest"]))
+    ok_ = BV.bvh_any_raw(o_a, d_a, mesh_main, tm_a) > 0
+    torch.cuda.synchronize()
+    n_diff = int((ok_ != plain_out["any"]).sum())
+    check(n_diff == 0, f"bvh_anyhit at its main-path launch: flags equal to the plain "
+          f"sweep's ({int(plain_out['any'].sum())} occluded, {n_diff} differ)")
+    err["bvh_anyhit"] = max(err["bvh_anyhit"], float(n_diff > 0))
+
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"  after timing: SM clock, max SM clock, power draw: {clocks}")
+
     # data-dependent work of the timed launches, counted on the plain
     # versions: the any-hit kernel stops at the first occluder
     hits, tests = fused_work(MK, scene, cfg_plain, px1, py1, s1, o1, d1)
     any_tests = first_occluder_tests(ro1, rd1, v0, e0, e1, tm1)
-    # where the main path's time goes: one traced render through the
-    # fused kernel (the profiler slows the host, so the wall time that
-    # counts is dt_on above, untraced)
-    wall_tr, rows = profiled(lambda: MK.render(main_scene, W, H, spp=SPP_TRACE))
-    dev_rows = device_rows(rows)
-    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
-    busy_k = sum(e.self_device_time_total for e in dev_rows
-                 if kernel_names["fused"] in e.key) / 1e6
-    n_launch = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
-    n_sync = sum(e.count for e in rows if e.key == "cudaStreamSynchronize")
+    # traversals: traverse_packed_ref over BOUND_SAMPLE rays of each
+    # recorded launch, and over every 32nd path of the fused BVH launch
+    work_c = [traversal_work(mesh_main, o, d) for o, d in rec["closest"]]
+    work_a = [traversal_work(mesh_main, o, d, "any", tm) for o, d, tm in rec["any"]]
+    step = n1 // BOUND_SAMPLE
+    bhits, bslabs, btests = bvh_fused_work(
+        MK, mesh, cfg_plain, mpx1[::step], mpy1[::step], ms1[::step], mo1[::step], md1[::step]
+    )
+
+    # where the main paths' time goes: one traced render of each (the
+    # profiler slows the host, so the wall times that count are the
+    # untraced ones above)
+    tr_fused = traced_render(lambda: MK.render(main_scene, W, H, spp=SPP_TRACE), SPP_TRACE,
+                             {"fused": kernel_names["fused"]})
+    tr_moff = traced_render(lambda: MK.render(mesh_main, W, H, cfg=cfg_moff, **mesh_kw),
+                            MESH_SPP, {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
+    tr_mon = traced_render(lambda: MK.render(mesh_main, W, H, cfg=cfg_mon, **mesh_kw),
+                           MESH_SPP, {"fused_bvh": kernel_names["fused_bvh"]})
+    tr_var = {key: tr_moff if key == ("on", "morton") else traced_render(
+        lambda c=c: MK.render(mesh_main, W, H, cfg=c, **mesh_kw), MESH_SPP,
+        {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
+        for key, c in variants.items()}
     for c, v in saved.items():  # timing launches are not main-path launches
         c.launches = v
 
@@ -438,28 +896,48 @@ def main() -> int:
     # bytes: o, d in (24); t (4) + index (4) out, or t_max in (4) + flag out (4)
     b_closest = bound(n1 * n_tris * MT_FLOPS, n1 * 32)
     b_any = bound(any_tests * MT_FLOPS, n1 * 32)
+    # the BVH kernels read their tables once: nodes (512 B box + 64 B meta)
+    # and packed rows (36 B; the fused kernel also the 4 B material id and
+    # its shading tables)
+    bvh_bytes = mesh.bvh.box.numel() * 4 + mesh.bvh.meta.numel() * 4 + mesh.num_triangles * 36
+    b_bvh_closest = bound(sum(w[0] for w in work_c) / len(work_c), n_bvh * 32 + bvh_bytes)
+    b_bvh_any = bound(sum(w[0] for w in work_a) / len(work_a), n_bvh * 32 + bvh_bytes)
+    scale = n1 / len(mpx1[::step])
+    flops_fbvh = scale * (bslabs * SLAB_FLOPS + btests * MT_FLOPS + bhits * SHADE_FLOPS)
+    b_fused_bvh = bound(flops_fbvh, n1 * 48 + bvh_bytes + mesh.num_triangles * 4
+                        + mesh.shade_tables.numel() * 4)
 
     launches_main = {
         "fused": launches_on["trace_paths_fused"],
         "closest": launches_off["closest_bruteforce"],
         "anyhit": launches_off["anyhit_bruteforce"],
+        "bvh_closest": launches_moff["bvh_closest_raw"],
+        "bvh_anyhit": launches_moff["bvh_any_raw"],
+        "fused_bvh": launches_mon["trace_paths_fused"],
     }
-    spp_of = {"fused": SPP_FUSED, "closest": SPP_OFF, "anyhit": SPP_OFF}
+    spp_of = {"fused": SPP_FUSED, "closest": SPP_OFF, "anyhit": SPP_OFF,
+              "bvh_closest": MESH_SPP, "bvh_anyhit": MESH_SPP, "fused_bvh": MESH_SPP}
+    rays_of = {"fused": n1, "closest": n1, "anyhit": n1, "bvh_closest": n_bvh,
+               "bvh_anyhit": n_bvh, "fused_bvh": n1}
+    csrc = "cuda_optix_pathtracing_tpu_torch/csrc/"
     meta = {
-        "fused": ("pt_fused_bruteforce",
-                  "cuda_optix_pathtracing_tpu_torch/csrc/megakernel.cu",
+        "fused": ("pt_fused_bruteforce", csrc + "megakernel.cu",
                   "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:498", b_fused),
-        "closest": ("closest_bruteforce",
-                    "cuda_optix_pathtracing_tpu_torch/csrc/intersect.cu",
+        "closest": ("closest_bruteforce", csrc + "intersect.cu",
                     "cuda_optix_pathtracing_tpu/ops/intersect_pallas.py:39", b_closest),
-        "anyhit": ("anyhit_bruteforce",
-                   "cuda_optix_pathtracing_tpu_torch/csrc/intersect.cu",
+        "anyhit": ("anyhit_bruteforce", csrc + "intersect.cu",
                    "cuda_optix_pathtracing_tpu/ops/intersect_pallas.py:84", b_any),
+        "bvh_closest": ("bvh_closest", csrc + "bvh.cu",
+                        "cuda_optix_pathtracing_tpu/ops/bvh_pallas.py:489", b_bvh_closest),
+        "bvh_anyhit": ("bvh_anyhit", csrc + "bvh.cu",
+                       "cuda_optix_pathtracing_tpu/ops/bvh_pallas.py:489", b_bvh_any),
+        "fused_bvh": ("pt_fused_bvh", csrc + "megakernel.cu",
+                      "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:1552", b_fused_bvh),
     }
     kernels = []
     for key, (name, src, repl, (bms, bby)) in meta.items():
         per_spp = launches_main[key] / spp_of[key]
-        print(f"  {name}: {ms[key]:.4f} ms/launch on the device at {n1} rays "
+        print(f"  {name}: {ms[key]:.4f} ms/launch on the device at {rays_of[key]} rays "
               f"({call_ms[key]:.4f} ms per wrapper call), plain {plain_ms[key]:.4f} ms, "
               f"{per_spp:g} launches/spp, bound {bms:.4f} ms ({bby}), library none {tag}")
         kernels.append({
@@ -471,16 +949,47 @@ def main() -> int:
     print(f"  fused kernel work: {hits} hits shaded, {tests} ray-triangle tests for "
           f"{n1} paths ({flops_fused / n1:.0f} flop/path); any-hit: {any_tests / n1:.2f} "
           f"tests/ray of {n_tris}")
+    for label, work in (("closest", work_c), ("any-hit", work_a)):
+        print(f"  bvh {label} work per depth (sample of {BOUND_SAMPLE} rays of {n_bvh}): "
+              + "; ".join(f"{w[1]:.1f} boxes, {w[2]:.1f} triangles, "
+                          f"{w[0] / n_bvh:.0f} flop per ray" for w in work))
+    k = len(mpx1[::step])
+    print(f"  fused BVH kernel work (every {step}th of {n1} paths, {k}): {bhits / k:.2f} hits, "
+          f"{bslabs / k:.1f} boxes, {btests / k:.1f} triangles per path "
+          f"({flops_fbvh / n1:.0f} flop/path)")
     print(f"  render fused {W}x{H}x{SPP_FUSED} depth {DEPTH}: {dt_on:.3f} s, "
           f"{mpaths:.2f} Mpaths/s (host clock around render()); "
           f"{RENDER_REPEATS} more renders: "
           f"{', '.join(f'{m:.2f}' for m in mpaths_rep)} Mpaths/s {tag}")
-    per = 1e3 / SPP_TRACE
-    print(f"  traced render, per spp: {dt_on * 1e3 / SPP_FUSED:.3f} ms untraced wall, "
-          f"device busy {busy * per:.3f} ms ({100 * busy * SPP_FUSED / SPP_TRACE / dt_on:.1f} % "
-          f"of the untraced wall), fused kernel {busy_k * per:.3f} ms, "
-          f"{n_launch / SPP_TRACE:.1f} kernel launches, {n_sync / SPP_TRACE:.1f} stream syncs; "
-          f"traced wall {wall_tr * per:.3f} ms {tag}")
+    for route, reps in mesh_rep.items():
+        print(f"  render mesh fused='{route}' {W}x{H}x{MESH_SPP} (one pass) depth {DEPTH}: "
+              f"{mesh_first[route]:.3f} Mpaths/s in phase 3 (first render), then "
+              f"{', '.join(f'{m:.3f}' for m in reps)} in turns {tag}")
+    mean_on, mean_off = np.mean(mesh_rep["on"]), np.mean(mesh_rep["off"])
+    print(f"  mesh routes: fused='on' {mean_on:.3f}, fused='off' {mean_off:.3f} Mpaths/s "
+          f"(means); faster: {'on' if mean_on > mean_off else 'off'}; auto takes "
+          f"{MK.resolve_fused(mesh_main, MK.MegakernelConfig()).fused} {tag}")
+    for (srt, order), reps in var_rep.items():
+        busy, per_k, n_launch, _, _ = tr_var[(srt, order)]
+        k4 = sum(t for _, t in per_k.values()) * 1e3
+        print(f"  mesh fused='off', sort_rays='{srt}', pixel_order='{order}': "
+              f"{', '.join(f'{m:.3f}' for m in reps)} Mpaths/s in turns; traced: kernel 4 "
+              f"{k4:.3f} ms per pass ({per_k['bvh_closest'][1] * 1e3:.3f} closest, "
+              f"{per_k['bvh_anyhit'][1] * 1e3:.3f} any-hit), device busy {busy * 1e3:.3f} ms "
+              f"and {n_launch:.1f} kernel launches per spp {tag}")
+    walls = {"fused": dt_on * 1e3 / SPP_FUSED,
+             "mesh off": 1e3 / (np.mean(mesh_rep["off"]) * 1e6 / (W * H)),
+             "mesh on": 1e3 / (np.mean(mesh_rep["on"]) * 1e6 / (W * H))}
+    for label, (busy, per_k, n_launch, n_sync, wall_tr) in (
+        ("fused", tr_fused), ("mesh off", tr_moff), ("mesh on", tr_mon)
+    ):
+        ks = ", ".join(f"{name} {n} launches {t * 1e3:.3f} ms" for name, (n, t) in per_k.items())
+        print(f"  traced render {label}, per spp: {walls[label]:.3f} ms untraced wall, "
+              f"device busy {busy * 1e3:.3f} ms ({100 * busy * 1e3 / walls[label]:.1f} % of "
+              f"the untraced wall); kernels in the whole render: {ks}; "
+              f"{n_launch:.1f} kernel launches, {n_sync:.1f} stream syncs; "
+              f"traced wall {wall_tr * 1e3:.3f} ms {tag}")
+    print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -69,35 +69,40 @@ __device__ __forceinline__ float dot3_rn(float a0, float b0, float a1, float b1,
                    __fmul_rn(a2, b2));
 }
 
-// Moller-Trumbore against one triangle row [v0 | e0 | e1] (9 floats).
+// Moller-Trumbore against the triangle (v0, e0 = p1 - p0, e1 = p2 - p0).
 // True when the ray hits at T_MIN < t < t_cap; writes t, u, v.
 // Every operation rounds as in the plain PyTorch sweep (one elementwise op
 // at a time, in the same order): an FMA-contracted cross product moves t
 // by a few ulp of the coordinates, which near the ray origin exceeds 1e-5
 // of t, so the test is written without contraction and t, u, v and the
 // hit decision follow the plain version's arithmetic.
+__device__ __forceinline__ bool mt_test(float3 o, float3 d, float3 p0,
+                                        float3 e0, float3 e1, float t_cap,
+                                        float& t, float& u, float& v) {
+  const float px = mul_sub_rn(d.y, e1.z, d.z, e1.y);
+  const float py = mul_sub_rn(d.z, e1.x, d.x, e1.z);
+  const float pz = mul_sub_rn(d.x, e1.y, d.y, e1.x);
+  const float det = dot3_rn(px, e0.x, py, e0.y, pz, e0.z);
+  const bool parallel = fabsf(det) < MT_TOLERANCE;
+  const float inv_det = 1.0f / (parallel ? 1.0f : det);
+  const float tx = o.x - p0.x, ty = o.y - p0.y, tz = o.z - p0.z;
+  const float qx = mul_sub_rn(ty, e0.z, tz, e0.y);
+  const float qy = mul_sub_rn(tz, e0.x, tx, e0.z);
+  const float qz = mul_sub_rn(tx, e0.y, ty, e0.x);
+  u = __fmul_rn(inv_det, dot3_rn(px, tx, py, ty, pz, tz));
+  v = __fmul_rn(inv_det, dot3_rn(qx, d.x, qy, d.y, qz, d.z));
+  t = __fmul_rn(inv_det, dot3_rn(qx, e1.x, qy, e1.y, qz, e1.z));
+  return !parallel && u >= -MT_TOLERANCE && v >= -MT_TOLERANCE &&
+         __fadd_rn(u, v) <= 1.0f + MT_TOLERANCE && t > T_MIN && t < t_cap;
+}
+
+// The same against one triangle row [v0 | e0 | e1] (9 floats).
 __device__ __forceinline__ bool mt_test(float3 o, float3 d,
                                         const float* __restrict__ tri,
                                         float t_cap, float& t, float& u,
                                         float& v) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e0x = tri[3], e0y = tri[4], e0z = tri[5];
-  const float e1x = tri[6], e1y = tri[7], e1z = tri[8];
-  const float px = mul_sub_rn(d.y, e1z, d.z, e1y);
-  const float py = mul_sub_rn(d.z, e1x, d.x, e1z);
-  const float pz = mul_sub_rn(d.x, e1y, d.y, e1x);
-  const float det = dot3_rn(px, e0x, py, e0y, pz, e0z);
-  const bool parallel = fabsf(det) < MT_TOLERANCE;
-  const float inv_det = 1.0f / (parallel ? 1.0f : det);
-  const float tx = o.x - v0x, ty = o.y - v0y, tz = o.z - v0z;
-  const float qx = mul_sub_rn(ty, e0z, tz, e0y);
-  const float qy = mul_sub_rn(tz, e0x, tx, e0z);
-  const float qz = mul_sub_rn(tx, e0y, ty, e0x);
-  u = __fmul_rn(inv_det, dot3_rn(px, tx, py, ty, pz, tz));
-  v = __fmul_rn(inv_det, dot3_rn(qx, d.x, qy, d.y, qz, d.z));
-  t = __fmul_rn(inv_det, dot3_rn(qx, e1x, qy, e1y, qz, e1z));
-  return !parallel && u >= -MT_TOLERANCE && v >= -MT_TOLERANCE &&
-         __fadd_rn(u, v) <= 1.0f + MT_TOLERANCE && t > T_MIN && t < t_cap;
+  return mt_test(o, d, f3(tri[0], tri[1], tri[2]), f3(tri[3], tri[4], tri[5]),
+                 f3(tri[6], tri[7], tri[8]), t_cap, t, u, v);
 }
 
 // Copy n floats from global to shared memory with the whole block.

@@ -1,8 +1,13 @@
-// Fused path-tracing megakernel for Hopper (sm_90a), brute-force mode.
+// Fused path-tracing megakernel for Hopper (sm_90a), brute-force and BVH
+// modes.
 //
 // Replaces the TPU kernel cuda_optix_pathtracing_tpu/models/megakernel_pallas.py
-// _pt_kernel (use_bvh=False, depth0=None, hash sampler), launched by
-// trace_paths_fused through pl.pallas_call. It computes the estimator of
+// _pt_kernel (depth0=None, hash sampler), launched by trace_paths_fused
+// through pl.pallas_call: pt_fused_bruteforce <- use_bvh=False (the call
+// at megakernel_pallas.py:1574), pt_fused_bvh <- use_bvh=True (:1552,
+// tile_traverse "attrs" and "any" inside). One kernel template serves
+// both; its geometry policy (BruteGeo, BvhGeo below) answers the closest
+// hit and the shadow query. It computes the estimator of
 // the plain PyTorch integrator (models/megakernel.py trace_paths, the
 // XLA integrator's twin): Moller-Trumbore closest hit over all triangles,
 // material fetch, Oren-Nayar multiscatter / Lambert / GGX dielectric
@@ -13,7 +18,7 @@
 // constant environment on a miss. Random numbers are pcg4d keyed
 // (px, py, sample ^ seed, depth * 24 + dim), bit-identical to ops/rng.py.
 //
-// What bounds it on the card: arithmetic. A path reads 36 bytes and
+// What bounds it on the card (brute force): arithmetic. A path reads 36 bytes and
 // writes 12, and does ~(T * 90 + 800) flops per bounce (two triangle
 // sweeps and the shading), ~22 kflop for the Cornell box at depth 5: the
 // FP32 pipes, not memory, set the floor. Divergence (paths end at
@@ -29,7 +34,17 @@
 // traced only when its contribution is non-zero. The TPU kernel's lane
 // tiles, SMEM scalar streaming and second "fetch" sweep are not carried
 // over; the winner's barycentrics are kept during the sweep instead.
-#include "common.cuh"
+//
+// BVH mode: the closest hit and the shadow ray walk the packed 8-wide BVH
+// per thread (bvh_trace in bvh.cuh); nodes and triangles stay in global
+// memory (~1.1 MB at 16k triangles, L2-resident) and only the shading
+// tables go to shared memory. The winner's (u, v) come from the
+// traversal, its vertices from its packed row and its material from
+// tri_mat, which is what the TPU kernel's "attrs" mode gathers during its
+// sweep. Still bound by arithmetic at the data's own work (node pops and
+// leaf tests per bounce), held back by divergence: paths of a warp
+// decohere after the first bounce and walk different subtrees.
+#include "bvh.cuh"
 
 #define INV_PI_F 0.318309886183790671538f
 #define DELTA_ALPHA 1e-3f
@@ -615,27 +630,101 @@ __device__ void sample_area(const float* em, int k_em, float3 pos, float u1, flo
 }
 
 // ---------------------------------------------------------------------------
+// geometry policies: the closest hit and the shadow query
+// ---------------------------------------------------------------------------
+
+// Brute force: every triangle, staged in shared memory as rows
+// [v0 | e0 | e1] (T, 9) followed by the material ids (T) as floats.
+struct BruteGeo {
+  int n_tris;
+  const float* tri;
+  const float* mid;
+  __host__ __device__ int smem_floats() const { return 10 * n_tris; }
+  __device__ void bind(const float* smem) {
+    tri = smem;
+    mid = smem + 9 * n_tris;
+  }
+  // sweep all triangles, keep the winner's (u, v)
+  __device__ bool closest(float3 o, float3 d, float& tb, float& ub, float& vb,
+                          int& ib) const {
+    tb = BIG_T;
+    ub = vb = 0.0f;
+    ib = 0;
+    for (int i = 0; i < n_tris; ++i) {
+      float t, u, v;
+      if (mt_test(o, d, tri + 9 * i, tb, t, u, v)) {
+        tb = t;
+        ib = i;
+        ub = u;
+        vb = v;
+      }
+    }
+    return tb < BIG_T;
+  }
+  __device__ bool occluded(float3 o, float3 d, float t_max) const {
+    bool occ = false;
+    for (int i = 0; i < n_tris && !occ; ++i) {
+      float t, u, v;
+      occ = mt_test(o, d, tri + 9 * i, t_max, t, u, v);
+    }
+    return occ;
+  }
+  __device__ void triangle(int i, float3& p0, float3& e0, float3& e1) const {
+    const float* r = tri + 9 * i;
+    p0 = f3(r[0], r[1], r[2]);
+    e0 = f3(r[3], r[4], r[5]);
+    e1 = f3(r[6], r[7], r[8]);
+  }
+  __device__ int material(int i) const { return (int)mid[i]; }
+};
+
+// BVH: per-thread traversal of the packed tables in global memory.
+struct BvhGeo {
+  BvhTables bt;
+  const int* __restrict__ tri_mat;  // (Tp,) packed-BVH order
+  __host__ __device__ int smem_floats() const { return 0; }
+  __device__ void bind(const float*) {}
+  __device__ bool closest(float3 o, float3 d, float& tb, float& ub, float& vb,
+                          int& ib) const {
+    ub = vb = 0.0f;
+    ib = 0;
+    return bvh_trace<false>(bt, o, d, BIG_T, tb, ub, vb, ib);
+  }
+  __device__ bool occluded(float3 o, float3 d, float t_max) const {
+    float t, u, v;
+    int row;
+    return bvh_trace<true>(bt, o, d, t_max, t, u, v, row);
+  }
+  __device__ void triangle(int i, float3& p0, float3& e0, float3& e1) const {
+    p0 = ldg3(bt.v0, i);
+    e0 = ldg3(bt.e0, i);
+    e1 = ldg3(bt.e1, i);
+  }
+  __device__ int material(int i) const { return __ldg(tri_mat + i); }
+};
+
+// ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
+template <class Geo>
 __global__ void __launch_bounds__(kBlock)
-    pt_fused_bruteforce_kernel(const float* __restrict__ o_in, const float* __restrict__ d_in,
-                               const uint32_t* __restrict__ px,
-                               const uint32_t* __restrict__ py,
-                               const uint32_t* __restrict__ sample_seed,
-                               const float* __restrict__ tables, int n, int n_tris,
-                               int n_mats, int n_lights, int n_em, int max_depth,
-                               int rr_start_depth, float* __restrict__ out) {
-  // shared layout: tri (T,9) | mat id (T) | mat (M,24) | light (L,13) |
-  // emissive (K,15) | env (3) | E/Eavg coefficients (56)
+    pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
+                    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                    const uint32_t* __restrict__ sample_seed,
+                    const float* __restrict__ tables, int n, int n_mats, int n_lights,
+                    int n_em, int max_depth, int rr_start_depth, float* __restrict__ out) {
+  // shared layout: geometry rows (brute force only) | mat (M,24) |
+  // light (L,13) | emissive (K,15) | env (3) | E/Eavg coefficients (56)
   extern __shared__ float smem[];
+  const int n_geo = geo.smem_floats();
   const int n_floats =
-      10 * n_tris + MAT_W * n_mats + LIGHT_W * n_lights + EM_W * n_em + 3 + EPOLY_N;
+      n_geo + MAT_W * n_mats + LIGHT_W * n_lights + EM_W * n_em + 3 + EPOLY_N;
   block_copy(smem, tables, n_floats);
   __syncthreads();
-  const float* s_tri = smem;
-  const float* s_mid = s_tri + 9 * n_tris;
-  const float* s_mat = s_mid + n_tris;
+  Geo g = geo;
+  g.bind(smem);
+  const float* s_mat = smem + n_geo;
   const float* s_light = s_mat + MAT_W * n_mats;
   const float* s_em = s_light + LIGHT_W * n_lights;
   const float3 env = row3(s_em + EM_W * n_em);
@@ -652,24 +741,15 @@ __global__ void __launch_bounds__(kBlock)
 
   for (int depth = 0; depth < max_depth; ++depth) {
     const uint32_t dim = (uint32_t)depth * DIMS_PER_BOUNCE;
-    // ---- closest hit: sweep all triangles, keep the winner's (u, v) ----
-    float tb = BIG_T, ub = 0.0f, vb = 0.0f;
-    int ib = 0;
-    for (int i = 0; i < n_tris; ++i) {
-      float t, u, v;
-      if (mt_test(o, d, s_tri + 9 * i, tb, t, u, v)) {
-        tb = t;
-        ib = i;
-        ub = u;
-        vb = v;
-      }
-    }
-    if (!(tb < BIG_T)) {  // miss: environment, path ends
+    // ---- closest hit, with the winner's (u, v) ----
+    float tb, ub, vb;
+    int ib;
+    if (!g.closest(o, d, tb, ub, vb, ib)) {  // miss: environment, path ends
       radiance = radiance + mul3(beta, env);
       break;
     }
-    const float* tri = s_tri + 9 * ib;
-    const float3 p0 = row3(tri), e0 = row3(tri + 3), e1 = row3(tri + 6);
+    float3 p0, e0, e1;
+    g.triangle(ib, p0, e0, e1);
     const float3 pos = p0 + ub * e0 + vb * e1;
     float3 ng = normalize3(cross3(e1, e0));
     if (dot3(d, ng) > 0.0f) ng = -ng;
@@ -680,7 +760,7 @@ __global__ void __launch_bounds__(kBlock)
            GAMMA7 * (fabsf(ub * p0.y) + fabsf(vb * p1.y) + fabsf(wb * p2.y)),
            GAMMA7 * (fabsf(ub * p0.z) + fabsf(vb * p1.z) + fabsf(wb * p2.z)));
     const float3 wo = -d;
-    const Mat m = load_mat(s_mat + MAT_W * (int)s_mid[ib]);
+    const Mat m = load_mat(s_mat + MAT_W * g.material(ib));
 
     if (n_em > 0) {  // directly-hit emitter, MIS against area NEE
       const float cos_l = fabsf(dot3(d, ng));
@@ -711,12 +791,7 @@ __global__ void __launch_bounds__(kBlock)
       eval_bsdf(s_ep, m, wo, ldir, ng, inside, f_l, pdf_l);
       if (lpdf > 0.0f && max3(f_l) > 0.0f) {
         const float3 so = offset_ray_origin(pos, err, ng, ldir);
-        bool occluded = false;
-        for (int i = 0; i < n_tris && !occluded; ++i) {
-          float t, u, v;
-          occluded = mt_test(so, ldir, s_tri + 9 * i, ldist, t, u, v);
-        }
-        if (!occluded) {
+        if (!g.occluded(so, ldir, ldist)) {
           float scale;
           if (is_area) {
             const float pdf_tot = lpdf * pmf;
@@ -757,29 +832,55 @@ __global__ void __launch_bounds__(kBlock)
   store3(out, r, radiance);
 }
 
-}  // namespace
-
-// Plain-C entry point (ctypes). Device pointers: o, d (n,3); px, py,
-// sample_seed (n,) u32; tables as packed by models/megakernel_cuda.py
-// (pack_tables); out (n,3). Returns the CUDA error code (0 = launched).
-extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_t* px,
-                                   const uint32_t* py, const uint32_t* sample_seed,
-                                   const float* tables, int n, int n_tris, int n_mats,
-                                   int n_lights, int n_em, int max_depth,
-                                   int rr_start_depth, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = sizeof(float) * (size_t)(10 * n_tris + MAT_W * n_mats +
+template <class Geo>
+int launch(const Geo& geo, const float* o, const float* d,
+           const uint32_t* px, const uint32_t* py, const uint32_t* sample_seed,
+           const float* tables, int n, int n_mats, int n_lights, int n_em,
+           int max_depth, int rr_start_depth, float* out, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)(geo.smem_floats() + MAT_W * n_mats +
                                                LIGHT_W * n_lights + EM_W * n_em + 3 +
                                                EPOLY_N);
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pt_fused_bruteforce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pt_fused_kernel<Geo>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int grid = (n + kBlock - 1) / kBlock;
-  pt_fused_bruteforce_kernel<<<grid, kBlock, smem, s>>>(o, d, px, py, sample_seed, tables, n,
-                                                        n_tris, n_mats, n_lights, n_em,
-                                                        max_depth, rr_start_depth, out);
+  pt_fused_kernel<Geo><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      geo, o, d, px, py, sample_seed, tables, n, n_mats, n_lights, n_em, max_depth,
+      rr_start_depth, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain-C entry points (ctypes). Device pointers: o, d (n,3); px, py,
+// sample_seed (n,) u32; out (n,3). Return the CUDA error code (0 =
+// launched).
+//
+// Brute force: tables = tri (T,9) | material id (T) | shading tables, as
+// packed by models/megakernel_cuda.py (pack_tables).
+extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_t* px,
+                                   const uint32_t* py, const uint32_t* sample_seed,
+                                   const float* tables, int n, int n_tris, int n_mats,
+                                   int n_lights, int n_em, int max_depth,
+                                   int rr_start_depth, float* out, void* stream) {
+  const BruteGeo geo{n_tris, nullptr, nullptr};
+  return launch(geo, o, d, px, py, sample_seed, tables, n, n_mats, n_lights,
+                n_em, max_depth, rr_start_depth, out, stream);
+}
+
+// BVH: shade = the shading tables (pack_shade_tables); box (M,128) f32,
+// meta (M*16) i32; v0, e0, e1 (Tp,3) and tri_mat (Tp,) i32 in packed-BVH
+// order.
+extern "C" int pt_fused_bvh(const float* o, const float* d, const uint32_t* px,
+                            const uint32_t* py, const uint32_t* sample_seed,
+                            const float* shade, const float* box, const int* meta,
+                            const float* v0, const float* e0, const float* e1,
+                            const int* tri_mat, int n, int n_mats, int n_lights, int n_em,
+                            int max_depth, int rr_start_depth, float* out, void* stream) {
+  const BvhGeo geo{BvhTables{box, meta, v0, e0, e1}, tri_mat};
+  return launch(geo, o, d, px, py, sample_seed, shade, n, n_mats, n_lights, n_em,
+                max_depth, rr_start_depth, out, stream);
 }

@@ -14,8 +14,14 @@ Two routes down the same path:
   path loop in one CUDA kernel (one thread per path);
 - ``fused="off"``: ``trace_paths`` below, a Python depth loop of dense
   masked bounce steps over the ray batch, whose closest-hit and shadow
-  queries go to the brute-force CUDA kernels (``ops/intersect_cuda.py``)
-  for CUDA tensors and to the plain sweep for CPU tensors.
+  queries go to the CUDA kernels for CUDA tensors (brute force,
+  ``ops/intersect_cuda.py``; BVH scenes, ``ops/bvh_cuda.py``, on rays
+  stably sorted by octant and origin with dead rays parked) and to the
+  plain sweep, unsorted, for CPU tensors.
+
+BVH scenes render their camera rays in Morton pixel order when the image
+is a power-of-two square (``pixel_order``), so neighbouring rays start in
+neighbouring pixels.
 
 ``trace_paths`` with ``backend="torch"`` is the plain version of the fused
 kernel and of the intersection kernels.
@@ -30,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import resolve_device
-from ..ops import intersect_cuda
+from ..ops import bvh_cuda, intersect_cuda
 from ..ops import rng as R
 from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
 from ..ops.camera import generate_rays, pixel_centers
@@ -38,6 +44,8 @@ from ..ops.envmap import eval_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
 from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_raw
 from ..ops.lights import AREA, eval_light, sample_area_light, sample_light
+from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
+from ..ops.raysort import ray_sort_key, sorted_apply, sorted_apply_tmax
 from ..ops.vecmath import dot, max_component, offset_ray_origin, sqr
 from ..scene.types import Scene, scene_to
 
@@ -60,6 +68,12 @@ class MegakernelConfig:
     light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5)
     fused: str = "auto"  # "auto" | "on" | "off": the fused CUDA path-loop
     # kernel; auto = on for CUDA scenes inside its feature set
+    pixel_order: str = "auto"  # "auto" | "linear" | "morton": Morton pixel
+    # order keeps neighbouring rays in neighbouring pixels; auto = morton
+    # when the scene has a BVH and the image is a power-of-two square
+    sort_rays: str = "auto"  # "auto" | "on" | "off": sort rays by
+    # direction octant | origin Morton before the BVH kernels (kernel
+    # route only); auto = on whenever the scene has a BVH
 
 
 def _validate(cfg: MegakernelConfig) -> None:
@@ -79,6 +93,10 @@ def _validate(cfg: MegakernelConfig) -> None:
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.fused not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused mode {cfg.fused!r}")
+    if cfg.pixel_order not in ("auto", "linear", "morton"):
+        raise ValueError(f"unknown pixel_order {cfg.pixel_order!r}")
+    if cfg.sort_rays not in ("auto", "on", "off"):
+        raise ValueError(f"unknown sort_rays {cfg.sort_rays!r}")
 
 
 def _use_kernels(cfg: MegakernelConfig, t: torch.Tensor) -> bool:
@@ -89,25 +107,70 @@ def _use_kernels(cfg: MegakernelConfig, t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _closest(scene: Scene, cfg, o, d):
-    if _use_kernels(cfg, o):
-        t, i = intersect_cuda.closest_bruteforce(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1
-        )
-    else:
+def _sort_on(cfg, scene) -> bool:
+    if cfg.sort_rays == "auto":
+        return scene.bvh is not None
+    return cfg.sort_rays == "on"
+
+
+_DEAD_ORIGIN = 1.0e9  # parked origin of a dead ray: outside every box
+_DEAD_DIR = (0.57735027, 0.57735027, 0.57735027)  # +octant, pointing away
+
+
+def _park_dead(o, d, alive):
+    """Move dead rays far away, pointing away from the scene: their
+    traversal ends at the root, and their results are masked anyway."""
+    if alive is None:
+        return o, d
+    m = alive[:, None]
+    return (
+        torch.where(m, o, _DEAD_ORIGIN),
+        torch.where(m, d, torch.tensor(_DEAD_DIR, dtype=d.dtype, device=d.device)),
+    )
+
+
+def _sort_key(scene: Scene, o, d, alive):
+    return ray_sort_key(o, d, scene.bounds[0], scene.bounds[1], alive)
+
+
+def _closest(scene: Scene, cfg, o, d, alive=None):
+    if not _use_kernels(cfg, o):
         t, i = intersect_closest_raw(
             o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
+        )
+    elif scene.bvh is not None:
+        o, d = _park_dead(o, d, alive)
+        if _sort_on(cfg, scene):
+            t, i = sorted_apply(
+                o, d, _sort_key(scene, o, d, alive),
+                lambda so, sd: bvh_cuda.bvh_closest_raw(so, sd, scene),
+            )
+        else:
+            t, i = bvh_cuda.bvh_closest_raw(o, d, scene)
+    else:
+        t, i = intersect_cuda.closest_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1
         )
     return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
 
 
-def _any(scene: Scene, cfg, o, d, t_max):
-    if _use_kernels(cfg, o):
-        return intersect_cuda.anyhit_bruteforce(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max
+def _any(scene: Scene, cfg, o, d, t_max, alive=None):
+    if not _use_kernels(cfg, o):
+        return intersect_any(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
         )
-    return intersect_any(
-        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
+    if scene.bvh is not None:
+        o, d = _park_dead(o, d, alive)
+        if _sort_on(cfg, scene):
+            occ = sorted_apply_tmax(
+                o, d, t_max, _sort_key(scene, o, d, alive),
+                lambda so, sd, st: bvh_cuda.bvh_any_raw(so, sd, scene, st),
+            )
+        else:
+            occ = bvh_cuda.bvh_any_raw(o, d, scene, t_max)
+        return occ > 0
+    return intersect_cuda.anyhit_bruteforce(
+        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max
     )
 
 
@@ -115,7 +178,10 @@ def resolve_fused(scene: Scene, cfg: MegakernelConfig) -> MegakernelConfig:
     """Pin ``cfg.fused`` to "on"/"off" for a concrete scene; "on" is
     validated against the fused kernel's feature set. "auto" fuses CUDA
     scenes inside that set unless ``backend="torch"`` asks for the plain
-    path."""
+    path, BVH scenes included: on the H100 the fused kernel renders the
+    mesh Cornell box at 256², depth 5, about 13 times as fast as the sorted
+    wavefront (chip_smoke.py; PERF.md). The reference never fuses BVH
+    scenes, from a TPU measurement that does not carry over."""
     from .megakernel_cuda import megakernel_cuda_supported
 
     _validate(cfg)
@@ -165,8 +231,10 @@ def init_path_state(n: int, o, d) -> PathState:
     )
 
 
-def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside):
-    """Next-event estimation at the hit points → (N,3) contribution."""
+def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None):
+    """Next-event estimation at the hit points → (N,3) contribution.
+    Shadow rays of dead paths, and of samples whose contribution is zero
+    anyway, are marked dead for the BVH kernels (parked, sorted last)."""
     n_lights = scene.num_lights
     ul = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.LIGHT_SELECT)
     light_idx = torch.clamp((ul * n_lights).to(torch.int64), max=n_lights - 1)
@@ -193,8 +261,11 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     f_cos, bsdf_pdf = eval_bsdf(
         mat, wo, direction, hit.normal, hit.normal, inside, ft=cfg.features
     )
+    shadow_live = (pdf > 0.0) & (max_component(f_cos) > 0.0)
+    if alive is not None:
+        shadow_live = shadow_live & alive
     shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
-    occluded = _any(scene, cfg, shadow_o, direction, distance)
+    occluded = _any(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
 
     # point/spot lights are not scene geometry: NEE is their only
     # estimator, so no MIS weight and no division by the cone pdf (the
@@ -215,7 +286,7 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
     """One path-tracing bounce over the full ray batch."""
     n = state.o.shape[0]
     depth_dim = depth * R.DIMS_PER_BOUNCE
-    hit = _closest(scene, cfg, state.o, state.d)
+    hit = _closest(scene, cfg, state.o, state.d, alive=state.alive)
 
     # miss → constant environment, path dies
     miss = state.alive & ~hit.hit
@@ -243,7 +314,10 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         radiance = radiance + torch.where(
             alive[..., None], state.beta * mat.emission * w_em[..., None], 0.0
         )
-    nee = _nee(scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside)
+    nee = _nee(
+        scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
+        alive=alive,
+    )
     radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
 
     u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
@@ -311,11 +385,22 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
     return state.radiance
 
 
+def _use_morton(cfg, scene, width, height) -> bool:
+    if cfg.pixel_order == "morton":
+        return is_pot_square(width, height)
+    if cfg.pixel_order == "auto":
+        return scene.bvh is not None and is_pot_square(width, height)
+    return False
+
+
 def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
     """Render ``nspp`` samples for every pixel → (nspp, H, W, 3) radiance,
     or (H, W, 3) when nspp == 1. The scene's device is the render's."""
     dev = scene.device
     pix = pixel_centers(width, height, dev)
+    morton = _use_morton(cfg, scene, width, height)
+    if morton:
+        pix = pix[torch.as_tensor(morton_pixel_order(width, height), device=dev)]
     if nspp > 1:
         pix = pix.repeat(nspp, 1)
         sample = sample + torch.repeat_interleave(
@@ -339,6 +424,9 @@ def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, samp
         )
     else:
         radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=dev)
+    if morton:
+        img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
+        return img if nspp > 1 else img[0]
     if nspp > 1:
         return radiance.reshape(nspp, height, width, 3)
     return radiance.reshape(height, width, 3)

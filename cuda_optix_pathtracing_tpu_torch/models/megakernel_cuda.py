@@ -2,15 +2,20 @@
 counterpart of the reference ``models/megakernel_pallas.py``.
 
 ``trace_paths_fused`` launches the kernel for CUDA tensors (one thread per
-path, the whole depth loop in registers, scene tables in shared memory)
+path, the whole depth loop in registers, shading tables in shared memory)
 or raises; for CPU tensors it runs the kernel's plain version,
 ``models/megakernel.trace_paths`` with the plain intersection sweep.
 ``trace_paths_fused.launches`` counts kernel launches and nothing else.
 
-Scope: brute-force intersection; Oren-Nayar, Lambert, GGX dielectric and
-conductor; point, spot and area lights with uniform selection; constant
-environment; hash sampler. The BVH mode and the single-depth mode of the
-reference kernel come with slice 2, its Halton variant with slice 4.
+Two modes, one kernel template: a brute-force scene's triangles go to
+shared memory with the shading tables (``pt_fused_bruteforce``); a BVH
+scene's node tables and packed triangles stay in global memory and each
+thread walks the tree (``pt_fused_bvh``).
+
+Scope: Oren-Nayar, Lambert, GGX dielectric and conductor; point, spot and
+area lights with uniform selection; constant environment; hash sampler.
+The reference kernel's single-depth mode (``trace_paths_fused_sorted``) and
+its Halton variant are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,20 +23,15 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..ops import _cuda_build
-from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR, _e_poly_coeffs
-from ..ops.envmap import env_color
+from ..ops.bvh import STACK_SIZE
+from ..ops.bvh_cuda import check_bvh_scene
+from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR
 from ..ops.lights import AREA, PORTED_LIGHT_TYPES
+from ..ops.shade_tables import EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
-
-MAT_ROWS = 24  # mtype, albedo3, on_sigma, alphax, alphay, phi0, eta,
-# refl3, trans3, cond_eta3, cond_k3, emission3
-LIGHT_ROWS = 13  # ltype, color3, pos3, direction3, cos_theta0, cos_theta_e, radius
-EM_ROWS = 15  # v0 3, e0 3, e1 3, rad 3, cdf_lo, cdf_hi, total area
-EPOLY_N = 7 * 7 + 7  # E(cos, alpha^2) and Eavg(alpha^2) coefficients, degree 6
 
 MAX_SMEM_BYTES = 227 * 1024  # one block's dynamic shared memory on Hopper
 
@@ -44,36 +44,35 @@ def _lib():
     lib = _cuda_build.load("megakernel")
     lib.pt_fused_bruteforce.argtypes = [_P] * 6 + [_I] * 7 + [_P] * 2
     lib.pt_fused_bruteforce.restype = _I
+    lib.pt_fused_bvh.argtypes = [_P] * 12 + [_I] * 6 + [_P] * 2
+    lib.pt_fused_bvh.restype = _I
     return lib
 
 
-@functools.cache
-def _epoly() -> np.ndarray:
-    """The 49 E and 7 Eavg polynomial coefficients, float32."""
-    coef2d, coef1d, deg = _e_poly_coeffs()
-    if deg != 6:
-        raise ValueError(f"csrc/megakernel.cu hard-codes degree 6, got {deg}")
-    return np.concatenate([coef2d.ravel(), coef1d]).astype(np.float32)
-
-
 def table_bytes(scene: Scene) -> int:
-    """Shared memory the kernel needs for this scene's tables."""
+    """Shared memory the kernel needs for this scene's tables: the
+    shading tables, plus the triangle rows and material ids of a
+    brute-force scene (a BVH scene's stay in global memory)."""
     k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
     floats = (
-        10 * scene.num_triangles
-        + MAT_ROWS * scene.materials.mtype.shape[0]
+        MAT_ROWS * scene.materials.mtype.shape[0]
         + LIGHT_ROWS * scene.num_lights
         + EM_ROWS * k
         + 3
         + EPOLY_N
     )
+    if scene.bvh is None:
+        floats += 10 * scene.num_triangles
     return 4 * floats
 
 
 def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     """Can the fused kernel render (scene, cfg)? Counterpart of the
-    reference ``pallas_megakernel_supported`` without the BVH and Halton
-    branches (not ported yet)."""
+    reference ``pallas_megakernel_supported`` without its Halton branch
+    (slice 4). The reference refuses BVH scenes whose node meta table
+    exceeds 255 KB, the TPU's SMEM budget for kernel inputs; here the node
+    tables stay in global memory, so only the traversal stack bounds the
+    tree (its depth)."""
     if cfg.sampler != "hash" or cfg.env_nee:
         return False
     if cfg.light_strategy == "tree" or cfg.pixel_filter != "box":
@@ -86,60 +85,26 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
         return False
     if AREA in ltypes and scene.emissive is None:
         return False
+    if scene.bvh is not None and 7 * scene.bvh.depth + 1 > STACK_SIZE:
+        return False
     return table_bytes(scene) <= MAX_SMEM_BYTES
 
 
-def _shade_tables(scene: Scene):
-    """Row-per-entry tables: materials (M,24), lights (L,13), env colour
-    (3,), emissive triangles (K,15) [v0|e0|e1|rad|cdf_lo|cdf_hi|area]."""
-    m = scene.materials
-    col = lambda x: x.to(torch.float32).reshape(x.shape[0], -1)  # noqa: E731
-    mat_tab = torch.cat(
-        [
-            col(m.mtype), m.albedo, col(m.on_sigma), col(m.alphax),
-            col(m.alphay), col(m.phi0), col(m.eta), m.refl_tint, m.trans_tint,
-            m.cond_eta, m.cond_k, m.emission,
-        ],
-        dim=1,
-    )
-    lt = scene.lights
-    light_tab = torch.cat(
-        [
-            col(lt.ltype), lt.color, lt.pos, lt.direction, col(lt.cos_theta0),
-            col(lt.cos_theta_e), col(lt.radius),
-        ],
-        dim=1,
-    )
-    if scene.emissive is not None:
-        em = scene.emissive
-        k = em.v0.shape[0]
-        em_tab = torch.cat(
-            [
-                em.v0, em.e0, em.e1, em.rad, col(em.cdf[:-1]), col(em.cdf[1:]),
-                em.area.reshape(1, 1).expand(k, 1),
-            ],
-            dim=1,
+def _shade(scene: Scene) -> torch.Tensor:
+    if scene.shade_tables is None:
+        raise ValueError(
+            "the scene has no shade_tables; build it with scene_from_host or "
+            "scene_from_arrays (ops/shade_tables.pack_shade_tables)"
         )
-    else:
-        em_tab = torch.zeros((0, EM_ROWS), dtype=torch.float32, device=m.albedo.device)
-    return mat_tab, light_tab, env_color(scene.env), em_tab
-
-
-def _scene_tables(scene: Scene):
-    """Brute-force tables: triangles (T,9) [v0|e0|e1], material ids (T,),
-    and the shading tables."""
-    tri = torch.cat([scene.tri_v0, scene.tri_e0, scene.tri_e1], dim=1)
-    return (tri, scene.tri_mat) + _shade_tables(scene)
+    return scene.shade_tables
 
 
 def pack_tables(scene: Scene) -> torch.Tensor:
-    """One float32 blob in the kernel's shared-memory layout:
-    tri (T,9) | material id (T) | materials (M,24) | lights (L,13) |
-    emissive (K,15) | env colour (3) | E/Eavg coefficients (56)."""
-    tri, mat_ids, mat_tab, light_tab, env, em_tab = _scene_tables(scene)
-    epoly = torch.from_numpy(_epoly()).to(tri.device)
-    parts = [tri, mat_ids.to(torch.float32), mat_tab, light_tab, em_tab, env, epoly]
-    return torch.cat([p.reshape(-1).to(torch.float32) for p in parts]).contiguous()
+    """The brute-force kernel's blob: tri (T,9) [v0|e0|e1] | material id
+    (T) | the scene's shading tables."""
+    tri = torch.cat([scene.tri_v0, scene.tri_e0, scene.tri_e1], dim=1)
+    parts = [tri.reshape(-1), scene.tri_mat.to(torch.float32), _shade(scene)]
+    return torch.cat(parts).contiguous()
 
 
 def _u32_as_i32(x, n, device):
@@ -180,7 +145,6 @@ def trace_paths_fused(
             f"scene tables need {table_bytes(scene)} B of shared memory, more "
             f"than the fused kernel's {MAX_SMEM_BYTES} B"
         )
-    tables = pack_tables(scene)
     o, d = o.contiguous(), d.contiguous()
     px32 = _u32_as_i32(px, n, dev)
     py32 = _u32_as_i32(py, n, dev)
@@ -189,15 +153,28 @@ def trace_paths_fused(
     if n == 0:
         return out
     k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
-    rc = _lib().pt_fused_bruteforce(
-        o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-        ss32.data_ptr(), tables.data_ptr(),
-        n, scene.num_triangles, scene.materials.mtype.shape[0],
-        scene.num_lights, k, max_depth, rr_start_depth, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_mats = scene.materials.mtype.shape[0]
+    if scene.bvh is not None:
+        check_bvh_scene(scene, o, d)
+        rc = _lib().pt_fused_bvh(
+            o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
+            ss32.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
+            scene.bvh.meta.data_ptr(), scene.tri_v0.data_ptr(), scene.tri_e0.data_ptr(),
+            scene.tri_e1.data_ptr(), scene.tri_mat.data_ptr(),
+            n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, out.data_ptr(),
+            stream,
+        )
+    else:
+        tables = pack_tables(scene)
+        rc = _lib().pt_fused_bruteforce(
+            o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
+            ss32.data_ptr(), tables.data_ptr(),
+            n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
+            rr_start_depth, out.data_ptr(), stream,
+        )
     if rc:
-        raise RuntimeError(f"pt_fused_bruteforce launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
     trace_paths_fused.launches += 1
     return out
 

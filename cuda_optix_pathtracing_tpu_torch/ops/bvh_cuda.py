@@ -1,0 +1,116 @@
+"""Wrappers of the BVH traversal kernels (``csrc/bvh.cu``), the
+counterpart of the reference ``ops/bvh_pallas.py``.
+
+``bvh_closest_raw`` and ``bvh_any_raw`` take the rays and a BVH scene:
+its node tables (``scene.bvh.box``, ``scene.bvh.meta``) and its triangle
+arrays, already in packed-BVH order. Nothing is packed per launch. For
+CUDA tensors each wrapper launches its kernel or raises; for CPU tensors
+it runs the plain version, the brute-force sweep over the same packed,
+padded arrays (``ops/intersect.py``), which is what the reference computes
+for BVH scenes off the TPU. Pad rows have zero edges and never hit. The
+kernel may pick another row than the sweep where two triangles tie in t.
+``launches`` on each wrapper counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _cuda_build
+from .bvh import STACK_SIZE
+from .intersect import intersect_any, intersect_closest_raw
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib():
+    lib = _cuda_build.load("bvh")
+    lib.bvh_closest.argtypes = [_P] * 7 + [_I] + [_P] * 3
+    lib.bvh_closest.restype = _I
+    lib.bvh_anyhit.argtypes = [_P] * 8 + [_I] + [_P] * 2
+    lib.bvh_anyhit.restype = _I
+    return lib
+
+
+def check_bvh_scene(scene, o, d) -> None:
+    """Raise unless ``scene`` has a BVH the kernels can walk (its depth
+    fits their stack, its tables are contiguous) and the rays are (N, 3)
+    float32 on its device."""
+    bvh = scene.bvh
+    if bvh is None:
+        raise ValueError("the scene has no BVH")
+    if 7 * bvh.depth + 1 > STACK_SIZE:
+        raise ValueError(
+            f"BVH depth {bvh.depth} needs {7 * bvh.depth + 1} stack entries, more "
+            f"than the traversal kernel's {STACK_SIZE}"
+        )
+    for name, x in (("o", o), ("d", d)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name} must be (N, 3) float32, got {tuple(x.shape)} {x.dtype}")
+        if x.device != scene.device:
+            raise ValueError(f"{name} is on {x.device}, the scene on {scene.device}")
+    if o.shape[0] != d.shape[0]:
+        raise ValueError("o and d differ in length")
+    tables = (bvh.box, bvh.meta, scene.tri_v0, scene.tri_e0, scene.tri_e1, scene.tri_mat)
+    if not all(x.is_contiguous() for x in tables):
+        raise ValueError("the scene's BVH and triangle tables must be contiguous")
+
+
+def _tables(scene):
+    b = scene.bvh
+    return (b.box.data_ptr(), b.meta.data_ptr(), scene.tri_v0.data_ptr(),
+            scene.tri_e0.data_ptr(), scene.tri_e1.data_ptr())
+
+
+def bvh_closest_raw(o, d, scene):
+    """Closest hit of every ray → (t (N,) f32, packed row (N,) int64),
+    BIG_T and row 0 on a miss."""
+    if not o.is_cuda:
+        return intersect_closest_raw(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
+    o, d = o.contiguous(), d.contiguous()
+    check_bvh_scene(scene, o, d)
+    n = o.shape[0]
+    t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    i = torch.empty((n,), dtype=torch.int32, device=o.device)
+    if n:
+        rc = _lib().bvh_closest(
+            o.data_ptr(), d.data_ptr(), *_tables(scene), n, t.data_ptr(), i.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream,
+        )
+        if rc:
+            raise RuntimeError(f"bvh_closest launch failed: CUDA error {rc}")
+        bvh_closest_raw.launches += 1
+    return t, i.to(torch.int64)
+
+
+bvh_closest_raw.launches = 0
+
+
+def bvh_any_raw(o, d, scene, t_max):
+    """Occlusion flags (N,) int32: 1 where a triangle is hit at
+    T_MIN < t < t_max."""
+    if not o.is_cuda:
+        return intersect_any(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max).to(torch.int32)
+    o, d = o.contiguous(), d.contiguous()
+    check_bvh_scene(scene, o, d)
+    n = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    t_max = torch.broadcast_to(t_max, (n,)).contiguous()
+    occ = torch.empty((n,), dtype=torch.int32, device=o.device)
+    if n:
+        rc = _lib().bvh_anyhit(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), *_tables(scene), n,
+            occ.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream,
+        )
+        if rc:
+            raise RuntimeError(f"bvh_anyhit launch failed: CUDA error {rc}")
+        bvh_any_raw.launches += 1
+    return occ
+
+
+bvh_any_raw.launches = 0

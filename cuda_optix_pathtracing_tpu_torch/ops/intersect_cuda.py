@@ -52,8 +52,9 @@ def _check_rays(o, d, tri):
     if tri.shape[0] > MAX_TRIS:
         raise ValueError(
             f"{tri.shape[0]} triangles exceed the brute-force kernels' "
-            f"shared-memory table ({MAX_TRIS}); mesh scenes take the BVH "
-            "path (slice 2)"
+            f"shared-memory table ({MAX_TRIS}); give the scene a BVH "
+            "(scene_from_host(use_bvh=True)) for the traversal kernels "
+            "(ops/bvh_cuda.py)"
         )
 
 

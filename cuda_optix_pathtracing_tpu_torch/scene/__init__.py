@@ -1,7 +1,7 @@
-from .procedural import cornell_box
+from .procedural import cornell_box, cornell_box_mesh
 from .types import HostScene, Scene, scene_from_arrays, scene_from_host, scene_to
 
 __all__ = [
-    "HostScene", "Scene", "cornell_box", "scene_from_arrays",
+    "HostScene", "Scene", "cornell_box", "cornell_box_mesh", "scene_from_arrays",
     "scene_from_host", "scene_to",
 ]

@@ -99,23 +99,13 @@ def generate_plane(center, normal, width, height):
     ]
 
 
-def cornell_box(width: int = 256, height: int = 256, device="cuda") -> Scene:
-    """The reference renderer's measured scene: 26 triangles.
-
-    - left ball: Oren-Nayar (1, .7, .3) σ=.7
-    - right ball: GGX dielectric, tints (.02,.07,.01)/(.95,.95,.87),
-      φ0=1, η=1.44, α=(.5,.7)
-    - walls: Oren-Nayar — white back/ceiling, orange floor, red left,
-      green right
-    - spot light 2·(1,1,1) at (0,1.8,1.7) aimed -z, cone cos(π/6)…cos(π/3),
-      radius 0.01; constant environment 0.1
-    - camera at origin looking +y, 20mm/36mm
-    """
+def _cornell_host(width: int, height: int, lat: int, lon: int) -> HostScene:
+    """The Cornell box with spheres of ``lat`` × ``lon`` subdivisions."""
     white = (0.9, 170.0 / 204.0, 160.0 / 204.0)
     hs = HostScene()
-    hs.add_model(generate_sphere((-1.2, 2.0, -0.25), 0.5, 2, 4), 0)
+    hs.add_model(generate_sphere((-1.2, 2.0, -0.25), 0.5, lat, lon), 0)
     hs.add_material(B.oren_nayar((1.0, 0.7, 0.3), 0.7))
-    hs.add_model(generate_sphere((1.2, 2.4, -0.25), 0.5, 2, 4), 1)
+    hs.add_model(generate_sphere((1.2, 2.4, -0.25), 0.5, lat, lon), 1)
     hs.add_material(
         B.ggx_dielectric((0.02, 0.07, 0.01), (0.95, 0.95, 0.87), 1.0, 1.44, 0.5, 0.7)
     )
@@ -147,4 +137,30 @@ def cornell_box(width: int = 256, height: int = 256, device="cuda") -> Scene:
         width=width,
         height=height,
     )
-    return scene_from_host(hs, device=device)
+    return hs
+
+
+def cornell_box(width: int = 256, height: int = 256, device="cuda") -> Scene:
+    """The reference renderer's measured scene: 26 triangles.
+
+    - left ball: Oren-Nayar (1, .7, .3) σ=.7
+    - right ball: GGX dielectric, tints (.02,.07,.01)/(.95,.95,.87),
+      φ0=1, η=1.44, α=(.5,.7)
+    - walls: Oren-Nayar — white back/ceiling, orange floor, red left,
+      green right
+    - spot light 2·(1,1,1) at (0,1.8,1.7) aimed -z, cone cos(π/6)…cos(π/3),
+      radius 0.01; constant environment 0.1
+    - camera at origin looking +y, 20mm/36mm
+    """
+    return scene_from_host(_cornell_host(width, height, 2, 4), device=device)
+
+
+def cornell_box_mesh(
+    width: int = 256, height: int = 256, subdiv: int = 48, use_bvh=None, device="cuda"
+) -> Scene:
+    """Cornell box with finely tessellated spheres (about 2·subdiv² + 60
+    triangles; 16,138 at subdiv 64): the BVH scene. Same materials,
+    light and camera as ``cornell_box``."""
+    return scene_from_host(
+        _cornell_host(width, height, subdiv, subdiv), use_bvh=use_bvh, device=device
+    )

@@ -2,9 +2,17 @@
 triangles as (v0, e0, e1) SoA, material/light tables and the camera
 transforms, as tensors on one device.
 
-Only the brute-force class is ported: scenes that would need a BVH
-(slice 2), a light tree, textures, shading normals, an HDR environment or
-instancing (slice 5) raise ``NotImplementedError``.
+Scenes at or above ``BVH_THRESHOLD`` triangles (or with ``use_bvh=True``)
+get an 8-wide BVH: the triangle arrays are then in packed-BVH order
+(leaf-major, padded with zero-edge rows) and ``bvh`` holds the node
+tables the traversal kernels read. Scenes that need a light tree,
+textures, shading normals, an HDR environment or instancing (slice 5)
+raise ``NotImplementedError``.
+
+Every table a kernel or a query reads is built here, once per scene: the
+BVH node tables, ``bounds`` (the packed rows' box, which the ray sort of
+BVH queries quantises origins in) and ``shade_tables``, the fused
+kernel's packed shading tables.
 
 ``scene_from_arrays`` carries a reference ``Scene`` over: it takes the
 reference's fields flattened to numpy by dotted name (``"materials.albedo"``,
@@ -22,6 +30,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.bsdf import MaterialTable, make_material_table
+from ..ops.bvh import PackedBVH, build_bvh, pack_bvh, permute_tri_array, tree_depth
 from ..ops.camera import CameraConfig, camera_from_raster, world_from_camera
 from ..ops.envmap import EnvMap, constant_envmap, make_constant_envmap
 from ..ops.lights import (
@@ -34,6 +43,8 @@ from ..ops.lights import (
     make_emissive_table,
     make_light_table,
 )
+from ..ops.raysort import scene_bounds
+from ..ops.shade_tables import pack_shade_tables
 
 # scenes at or above this many triangles get a BVH in the reference
 BVH_THRESHOLD = 512
@@ -55,6 +66,12 @@ class Scene(NamedTuple):
     cam_from_raster: torch.Tensor  # (4,4)
     world_from_cam: torch.Tensor  # (4,4)
     emissive: Optional[EmissiveTable] = None  # area-light triangle set
+    bvh: Optional[PackedBVH] = None  # node tables; the tri_* arrays are
+    # then in packed-BVH order
+    shade_tables: Optional[torch.Tensor] = None  # (S,) f32 fused-kernel
+    # shading tables (ops/shade_tables.pack_shade_tables)
+    bounds: Optional[torch.Tensor] = None  # (2, 3) f32 [lo, hi] box of the
+    # triangle rows (pads included) of a BVH scene: the ray sort's grid
 
     @property
     def num_triangles(self) -> int:
@@ -76,11 +93,11 @@ def scene_to(scene: Scene, device) -> Scene:
         return scene
 
     def mv(x):
-        if x is None:
-            return None
         if torch.is_tensor(x):
             return x.to(device)
-        return type(x)(*(mv(f) for f in x))
+        if hasattr(x, "_fields"):
+            return type(x)(*(mv(f) for f in x))
+        return x  # None, host arrays, ints
 
     return mv(scene)
 
@@ -120,16 +137,12 @@ def scene_from_host(
     use_light_tree: Optional[bool] = None,
     device="cuda",
 ) -> Scene:
-    """Device scene from a HostScene (the reference's brute-force
-    branch): emissive materials become one AREA light row over an
-    emissive-triangle table."""
+    """Device scene from a HostScene: emissive materials become one AREA
+    light row over an emissive-triangle table; scenes with
+    ``BVH_THRESHOLD`` triangles or more (or ``use_bvh=True``) get a BVH
+    and packed-BVH triangle order."""
     device = resolve_device(device)
     tris = np.stack(hs.triangles).astype(np.float32)  # (T,3,3)
-    if use_bvh if use_bvh is not None else len(tris) >= BVH_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(tris)} triangles need a BVH, which is not ported yet "
-            "(slice 2: mesh scenes)"
-        )
     v0 = tris[:, 0]
     e0 = tris[:, 1] - tris[:, 0]
     e1 = tris[:, 2] - tris[:, 0]
@@ -171,9 +184,14 @@ def scene_from_host(
             "for uniform selection"
         )
 
+    bvh = None
+    if use_bvh if use_bvh is not None else len(tris) >= BVH_THRESHOLD:
+        bvh = pack_bvh(build_bvh(v0, e0, e1), device)
+        v0, e0, e1, tri_mat = (permute_tri_array(a, bvh.perm) for a in (v0, e0, e1, tri_mat))
+
     cam = hs.camera
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return Scene(
+    return with_kernel_tables(Scene(
         tri_v0=t(v0),
         tri_e0=t(e0),
         tri_e1=t(e1),
@@ -188,12 +206,25 @@ def scene_from_host(
         ),
         world_from_cam=t(world_from_camera(cam.direction, cam.position)),
         emissive=emissive,
+        bvh=bvh,
+    ))
+
+
+def with_kernel_tables(scene: Scene) -> Scene:
+    """``scene`` with the tables its kernels and queries read, built once
+    per scene so that no launch builds them: the fused kernel's shading
+    tables, and a BVH scene's ``bounds``."""
+    bounds = None
+    if scene.bvh is not None:
+        bounds = torch.stack(scene_bounds(scene.tri_v0, scene.tri_e0, scene.tri_e1))
+    return scene._replace(
+        shade_tables=pack_shade_tables(scene.materials, scene.lights, scene.env, scene.emissive),
+        bounds=bounds,
     )
 
 
 # reference Scene fields outside this slice, and the slice that ports them
 _LATER = {
-    "bvh": "slice 2: mesh scenes",
     "light_tree": "slice 5: scene breadth (light tree)",
     "tri_emrec": "slice 5: scene breadth (light tree)",
     "textures": "slice 5: scene breadth (textures)",
@@ -246,7 +277,14 @@ def scene_from_arrays(fields: dict, device) -> Scene:
         emissive = EmissiveTable(
             *(t(f[f"emissive.{name}"]) for name in EmissiveTable._fields)
         )
-    return Scene(
+    bvh = None
+    if "bvh.meta" in f:
+        meta = f["bvh.meta"].astype(np.int32)
+        bvh = PackedBVH(
+            t(f["bvh.box"]), t(meta, np.int32), f["bvh.perm"].astype(np.int32),
+            tree_depth(meta),
+        )
+    return with_kernel_tables(Scene(
         tri_v0=t(f["tri_v0"]),
         tri_e0=t(f["tri_e0"]),
         tri_e1=t(f["tri_e1"]),
@@ -259,4 +297,5 @@ def scene_from_arrays(fields: dict, device) -> Scene:
         cam_from_raster=t(f["cam_from_raster"]),
         world_from_cam=t(f["world_from_cam"]),
         emissive=emissive,
-    )
+        bvh=bvh,
+    ))

@@ -4,7 +4,9 @@ write the mean and sqrt-MSE PNGs.
 
 Run as: ``python -m cuda_optix_pathtracing_tpu_torch.utils.cli --scene cornell``
 (``--device cuda`` is the default; ``--device cpu`` runs the plain path).
-Only the procedural Cornell box is ported; other scenes raise.
+Scenes: ``cornell`` (26 triangles) and ``cornell-mesh`` (the same box with
+finely tessellated spheres, subdivision 48: 9,034 triangles and a BVH).
+JSON/PBRT scene files raise (slice 5).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def main(argv=None) -> int:
     from ..models.megakernel import MegakernelConfig, render
     from ..ops.bsdf import mat_features_from_table
     from ..ops.film import film_sqrt_mse, srgb_encode, to_uint8
-    from ..scene import cornell_box
+    from ..scene import cornell_box, cornell_box_mesh
     from .checkpoint import load_film, save_film
     from .imageio import write_png
 
@@ -35,12 +37,15 @@ def main(argv=None) -> int:
     log = logging.getLogger("dtpt-torch")
     device = resolve_device(cfg.device)
 
-    if cfg.scene != "cornell":
+    if cfg.scene == "cornell":
+        scene = cornell_box(cfg.width, cfg.height, device=device)
+    elif cfg.scene == "cornell-mesh":
+        scene = cornell_box_mesh(cfg.width, cfg.height, device=device)
+    else:
         raise NotImplementedError(
             f"scene {cfg.scene!r} is not ported yet: JSON/PBRT scenes come "
-            "with slice 5, the mesh Cornell box with slice 2"
+            "with slice 5"
         )
-    scene = cornell_box(cfg.width, cfg.height, device=device)
     log.info(
         "scene=%s %dx%d spp=%d depth=%d sampler=%s device=%s",
         cfg.scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.sampler,

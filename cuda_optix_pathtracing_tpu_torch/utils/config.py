@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 @dataclass
 class RunConfig:
-    scene: str = "cornell"  # only the procedural Cornell box is ported
+    scene: str = "cornell"  # "cornell" | "cornell-mesh"
     out: str = "out/render.png"
     width: int = 256
     height: int = 256
@@ -28,10 +28,10 @@ class RunConfig:
 def parse_args(argv=None) -> RunConfig:
     p = argparse.ArgumentParser(
         prog="dtpt-render-torch",
-        description="Path tracer, PyTorch + CUDA port (Cornell box)",
+        description="Path tracer, PyTorch + CUDA port (Cornell boxes)",
     )
     d = RunConfig()
-    p.add_argument("--scene", default=d.scene, help="'cornell'")
+    p.add_argument("--scene", default=d.scene, help="'cornell' or 'cornell-mesh'")
     p.add_argument("--out", default=d.out, help="output PNG path")
     p.add_argument("--width", type=int, default=d.width)
     p.add_argument("--height", type=int, default=d.height)

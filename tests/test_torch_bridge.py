@@ -12,9 +12,10 @@ import torch
 from cuda_optix_pathtracing_tpu.ops import bsdf as jbsdf
 from cuda_optix_pathtracing_tpu.ops import camera as jcamera
 from cuda_optix_pathtracing_tpu.scene import cornell_box as j_cornell_box
+from cuda_optix_pathtracing_tpu.scene.procedural import cornell_box_mesh as j_cornell_box_mesh
 from cuda_optix_pathtracing_tpu_torch.ops import bsdf as tbsdf
 from cuda_optix_pathtracing_tpu_torch.ops import camera as tcamera
-from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, scene_from_arrays
+from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh, scene_from_arrays
 
 torch.set_num_threads(2)
 
@@ -36,10 +37,12 @@ def flatten_scene(obj, prefix: str = "") -> dict:
 
 
 def _leaves(obj, prefix=""):
+    """Port Scene → {dotted name: numpy array} (tensors, host arrays and
+    ints alike), leaving out fields that are None."""
     if obj is None:
         return {}
-    if torch.is_tensor(obj):
-        return {prefix[:-1]: obj.numpy()}
+    if not hasattr(obj, "_fields"):
+        return {prefix[:-1]: obj.numpy() if torch.is_tensor(obj) else np.asarray(obj)}
     out = {}
     for name in obj._fields:
         out.update(_leaves(getattr(obj, name), f"{prefix}{name}."))
@@ -61,10 +64,25 @@ def test_cornell_box_equals_carried_over_reference(ref_scene):
     assert ported["tri_v0"].shape == (26, 3)
 
 
+def test_mesh_scene_equals_carried_over_reference():
+    ref = j_cornell_box_mesh(32, 32, subdiv=16)
+    assert ref.bvh is not None
+    ported = _leaves(cornell_box_mesh(32, 32, subdiv=16, device="cpu"))
+    carried = _leaves(scene_from_arrays(flatten_scene(ref), "cpu"))
+    assert ported.keys() == carried.keys()
+    for key in ported:
+        assert ported[key].dtype == carried[key].dtype, key
+        np.testing.assert_array_equal(ported[key], carried[key], err_msg=key)
+    assert ported["tri_v0"].shape == (1520, 3) and ported["bvh.box"].shape == (20, 128)
+    for key in ("bvh.box", "bvh.meta", "bvh.perm", "tri_v0", "tri_mat"):
+        np.testing.assert_array_equal(ported[key], np.asarray(flatten_scene(ref)[key]), err_msg=key)
+    assert ported["bvh.depth"] == 3
+
+
 def test_scene_from_arrays_refuses_later_slices(ref_scene):
     fields = flatten_scene(ref_scene)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        scene_from_arrays({**fields, "bvh.box": np.zeros(1)}, "cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        scene_from_arrays({**fields, "light_tree.nodes": np.zeros(1)}, "cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         scene_from_arrays({**fields, "tri_ns": np.zeros((26, 3, 3))}, "cpu")
 

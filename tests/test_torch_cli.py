@@ -1,5 +1,5 @@
-"""The port's CLI renders the Cornell box on the CPU and writes both PNGs;
-``--checkpoint`` resumes a film."""
+"""The port's CLI renders the Cornell boxes on the CPU and writes both
+PNGs; ``--checkpoint`` resumes a film."""
 
 import numpy as np
 import pytest
@@ -34,6 +34,16 @@ def test_cli_checkpoint_resumes(tmp_path):
     assert float(load_film(ck)[0].n) == 4
 
 
+def test_cli_renders_mesh_scene(tmp_path):
+    out = tmp_path / "mesh.png"
+    args = ["--scene", "cornell-mesh", "--device", "cpu", "--width", "16", "--height", "16",
+            "--spp", "1", "--max-depth", "2", "--log-level", "warning", "--out", str(out)]
+    assert cli.main(args) == 0
+    mean = read_png(str(out))
+    assert mean.shape == (16, 16, 3) and mean.mean() > 0
+    assert read_png(str(tmp_path / "mesh_sqrt_mse.png")).shape == (16, 16, 3)
+
+
 def test_cli_refuses_unported_scenes(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(ARGS + ["--scene", "cornell-mesh", "--out", str(tmp_path / "x.png")])
+        cli.main(ARGS + ["--scene", "scenes/cornell.json", "--out", str(tmp_path / "x.png")])

@@ -28,6 +28,13 @@ def scene(dev):
     return cornell_box(32, 32, device=dev)
 
 
+@pytest.fixture(scope="module")
+def mesh(dev):
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
+
+    return cornell_box_mesh(32, 32, subdiv=16, device=dev)
+
+
 def _rays(dev, n=8192, seed=3):
     rs = np.random.default_rng(seed)
     o = rs.uniform([-2.0, 0.0, -0.5], [2.0, 4.0, 2.0], (n, 3))
@@ -77,24 +84,76 @@ def _mixed_scene(dev):
     return scene_from_host(hs, use_light_tree=False, device=dev)
 
 
-# the Cornell box and the conductor / Lambert / area-light scene
-@pytest.mark.parametrize("case", ["cornell", "mixed"])
-def test_fused_kernel_matches_trace_paths(dev, scene, case):
-    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
-    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+def _camera_rays(dev, scene, spp):
     from cuda_optix_pathtracing_tpu_torch.ops import rng as R
     from cuda_optix_pathtracing_tpu_torch.ops.camera import generate_rays, pixel_centers
 
-    if case == "mixed":
-        scene = _mixed_scene(dev)
-    spp = 4
     pix = pixel_centers(32, 32, dev).repeat(spp, 1)
     sample = torch.repeat_interleave(torch.arange(spp, device=dev), 32 * 32)
     px, py = pix[:, 0].long(), pix[:, 1].long()
     u1, u2 = R.Sampler("hash", 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
     o, d = generate_rays(pix + torch.stack([u1, u2], -1), scene.cam_from_raster,
                          scene.world_from_cam)
-    rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=3)
+    return px, py, sample, o, d
+
+
+def test_bvh_kernels_match_plain_and_oracle(dev, mesh):
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import traverse_packed_ref
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh_cuda import bvh_any_raw, bvh_closest_raw
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import intersect_any, intersect_closest_raw
+
+    tris = (mesh.tri_v0, mesh.tri_e0, mesh.tri_e1)
+    ro, rd, t_max = _rays(dev)
+    for o, d in (_camera_rays(dev, mesh, 2)[3:], (ro, rd)):
+        before = bvh_closest_raw.launches
+        tk, ik = bvh_closest_raw(o, d, mesh)
+        tp, ip = intersect_closest_raw(o, d, *tris)
+        torch.cuda.synchronize()
+        assert bvh_closest_raw.launches == before + 1
+        hit = tp < 3.0e38
+        assert bool(((tk < 3.0e38) == hit).all())
+        rel = (tk - tp).abs() / tp.abs()
+        assert bool((rel[hit] <= 1e-5).all())
+        assert bool(((ik == ip) | (rel <= 1e-6)).all())
+        # the kernel is the oracle's traversal, step for step
+        tr, ir, _ = traverse_packed_ref(mesh.bvh.box, mesh.bvh.meta, *tris, o, d)
+        np.testing.assert_array_equal(tk.cpu().numpy(), tr)
+        np.testing.assert_array_equal(ik.cpu().numpy(), ir)
+        tm = t_max[: o.shape[0]]
+        occ = bvh_any_raw(o, d, mesh, tm)
+        assert occ.dtype == torch.int32
+        assert bool(((occ > 0) == intersect_any(o, d, *tris, tm)).all())
+        occ_r, _ = traverse_packed_ref(mesh.bvh.box, mesh.bvh.meta, *tris, o, d, "any", tm)
+        np.testing.assert_array_equal(occ.cpu().numpy() > 0, occ_r)
+
+
+# the Cornell box, the conductor / Lambert / area-light scene, and the mesh
+# Cornell box through the fused kernel's BVH mode and through the
+# wavefront (fused="off": kernel 4 on sorted rays, and on rays in their
+# own order with sort_rays="off")
+@pytest.mark.parametrize(
+    "case", ["cornell", "mixed", "mesh", "mesh_wavefront", "mesh_wavefront_unsorted"]
+)
+def test_fused_kernel_matches_trace_paths(dev, scene, mesh, case):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh_cuda import bvh_closest_raw
+
+    if case == "mixed":
+        scene = _mixed_scene(dev)
+    if case.startswith("mesh"):
+        scene = mesh
+    spp = 4
+    px, py, sample, o, d = _camera_rays(dev, scene, spp)
+    before = trace_paths_fused.launches, bvh_closest_raw.launches
+    if case.startswith("mesh_wavefront"):
+        sort = "off" if case.endswith("unsorted") else "auto"
+        rk = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, fused="off", sort_rays=sort),
+                            px, py, sample, o, d, device=dev)
+        assert bvh_closest_raw.launches == before[1] + 3
+    else:
+        rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=3)
+        assert trace_paths_fused.launches == before[0] + 1
     rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, backend="torch"),
                         px, py, sample, o, d, device=dev)
     diff = ((rk - rp).reshape(spp, -1, 3).sum(0) / spp).abs()
@@ -105,8 +164,9 @@ def test_fused_kernel_matches_trace_paths(dev, scene, case):
         assert float(rk.max()) > 0.1  # the lamp lights the scene
 
 
-def test_render_resolves_to_fused_on_cuda(dev, scene):
-    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig, resolve_fused
+def test_render_resolves_to_fused_on_cuda(dev, scene, mesh):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
 
-    assert resolve_fused(scene, MegakernelConfig()).fused == "on"
-    assert resolve_fused(scene, MegakernelConfig(backend="torch")).fused == "off"
+    assert MK.resolve_fused(scene, MK.MegakernelConfig()).fused == "on"
+    assert MK.resolve_fused(scene, MK.MegakernelConfig(backend="torch")).fused == "off"
+    assert MK.resolve_fused(mesh, MK.MegakernelConfig()).fused == "on"

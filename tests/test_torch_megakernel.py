@@ -20,11 +20,13 @@ from cuda_optix_pathtracing_tpu.ops import rng as JR
 from cuda_optix_pathtracing_tpu.ops.camera import CameraConfig as JCam
 from cuda_optix_pathtracing_tpu.ops.camera import generate_rays, pixel_centers
 from cuda_optix_pathtracing_tpu.scene import cornell_box as j_cornell_box
+from cuda_optix_pathtracing_tpu.scene.procedural import cornell_box_mesh as j_cornell_box_mesh
 from cuda_optix_pathtracing_tpu.scene.types import HostScene as JHost
 from cuda_optix_pathtracing_tpu.scene.types import scene_from_host as j_from_host
 from cuda_optix_pathtracing_tpu_torch.models.megakernel import (
     MegakernelConfig,
     render,
+    render_sample_batch,
     resolve_fused,
     trace_paths,
 )
@@ -35,7 +37,7 @@ from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import (
 from cuda_optix_pathtracing_tpu_torch.ops import bsdf as TB
 from cuda_optix_pathtracing_tpu_torch.ops import lights as TL
 from cuda_optix_pathtracing_tpu_torch.ops.camera import CameraConfig as TCam
-from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, scene_from_arrays
+from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh, scene_from_arrays
 from cuda_optix_pathtracing_tpu_torch.scene.types import HostScene as THost
 from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host as t_from_host
 from test_torch_bridge import flatten_scene
@@ -55,13 +57,13 @@ def _parity(a, b, n):
     assert (diff.max(-1) > 1e-3).mean() < 0.005
 
 
-def _reference_runs(j_scene):
+def _reference_runs(j_scene, samples=SAMPLES):
     """Per-sample radiance sums of the JAX XLA integrator and the JAX
     fused kernel (interpret mode), plus the keys/rays they used."""
     cfg = JCfg(max_depth=DEPTH, remat=False, backend="xla")
     acc_x = acc_f = 0.0
     inputs = []
-    for k in range(SAMPLES):
+    for k in range(samples):
         samp = jnp.uint32(k)
         pix = pixel_centers(W, H)
         px = pix[:, 0].astype(jnp.uint32)
@@ -113,12 +115,24 @@ def mixed_case():
     return t_scene, _reference_runs(j_scene)
 
 
+@pytest.fixture(scope="module")
+def mesh_case():
+    """The mesh Cornell box with a BVH (subdivision 8: 234 triangles in
+    352 packed rows), 2 samples: the port's plain sweep over the packed
+    arrays against the reference's XLA integrator and its fused kernel's
+    BVH mode in interpret mode."""
+    j_scene = j_cornell_box_mesh(W, H, subdiv=8, use_bvh=True)
+    t_scene = scene_from_arrays(flatten_scene(j_scene), "cpu")
+    assert t_scene.bvh is not None and t_scene.num_triangles == 352
+    return t_scene, _reference_runs(j_scene, samples=2)
+
+
 @pytest.mark.parametrize("ref", ["xla", "fused_interpret"])
-@pytest.mark.parametrize("case", ["cornell_case", "mixed_case"])
+@pytest.mark.parametrize("case", ["cornell_case", "mixed_case", "mesh_case"])
 def test_trace_paths_parity(request, case, ref):
     t_scene, (acc_x, acc_f, inputs) = request.getfixturevalue(case)
     ours = _port_sum(t_scene, inputs, _trace)
-    _parity(acc_x if ref == "xla" else acc_f, ours, SAMPLES)
+    _parity(acc_x if ref == "xla" else acc_f, ours, len(inputs))
     if case == "mixed_case":
         assert ours.max() > 0.1  # the lamp lights the scene
 
@@ -143,8 +157,20 @@ def test_render_film_matches_reference():
     _parity(np.asarray(j_film.mean), t_film.mean.numpy(), 1)
 
 
-def test_resolve_fused(cornell_case):
-    t_scene = cornell_case[0]
+def test_morton_order_same_image():
+    scene = cornell_box_mesh(W, H, subdiv=8, use_bvh=True, device="cpu")
+    cfg = MegakernelConfig(max_depth=2)
+    morton = render_sample_batch(scene, dataclasses.replace(cfg, pixel_order="morton"), W, H, 0, nspp=2)
+    linear = render_sample_batch(scene, dataclasses.replace(cfg, pixel_order="linear"), W, H, 0, nspp=2)
+    assert morton.shape == (2, H, W, 3)
+    np.testing.assert_array_equal(morton.numpy(), linear.numpy())
+    one = render_sample_batch(scene, cfg, W, H, 1)  # auto: Morton for a BVH scene
+    np.testing.assert_array_equal(one.numpy(), linear[1].numpy())
+
+
+@pytest.mark.parametrize("case", ["cornell_case", "mesh_case"])
+def test_resolve_fused(request, case):
+    t_scene = request.getfixturevalue(case)[0]
     cfg = MegakernelConfig()
     assert megakernel_cuda_supported(t_scene, cfg)
     assert not megakernel_cuda_supported(t_scene, dataclasses.replace(cfg, env_nee=True))
