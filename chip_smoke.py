@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Two scenes, each down both routes of the render:
+Two scenes, each down every route of the port:
 
 - the Cornell box (26 triangles, brute force): the fused kernel
   ``pt_fused_bruteforce`` and, with ``fused="off"``, the closest-hit and
-  any-hit kernels ``closest_bruteforce`` and ``anyhit_bruteforce``;
+  any-hit kernels ``closest_bruteforce`` and ``anyhit_bruteforce``; with
+  the hash sampler, and with the Owen-scrambled Halton sampler (the fused
+  kernel's Halton instantiation), with and without the Mitchell filter;
 - the mesh Cornell box of ``bench.py``'s second leg
   (``cornell_box_mesh(256, 256, subdiv=64)``: 16,138 triangles in 23,568
   packed rows, a 432-node BVH): with ``fused="off"`` the sorted wavefront,
   whose queries go to the traversal kernels ``bvh_closest`` and
   ``bvh_anyhit``; with ``fused="on"`` the fused kernel's BVH mode
-  ``pt_fused_bvh``.
+  ``pt_fused_bvh`` (hash and Halton); and the depth-sorted fused
+  wavefront ``trace_paths_fused_sorted``, one launch of the single-bounce
+  kernel ``pt_bounce_bvh`` per depth (hash and Halton).
 
 Phases (each fails loudly; there is no CPU fallback):
 
@@ -23,23 +27,33 @@ Phases (each fails loudly; there is no CPU fallback):
    ptxas' register/spill lines;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, to the tolerances stated below (the mesh kernels also at
-   the main path's own launches, in phase 4);
+   the main path's own launches, in phase 4): the Halton fused kernel in
+   both modes, and the single-bounce kernel plane by plane against
+   ``bounce_step`` at depths 0, 1 (sorted) and 3 (sorted, many dead
+   paths) of the 1,048,576-path mesh pass;
 3. the main paths, launch counters zeroed just before and read just after
    each run: ``render(cornell_box)`` at 64 spp (fused kernel), the CLI
-   (8 spp), ``render`` at 8 spp with ``fused="off"``; then the bench's mesh
-   leg, ``render(mesh, spp=16, kspp=16, spp_per_pass=16)`` with
-   ``fused="off"`` and with ``fused="on"``, and the CLI on ``cornell-mesh``;
+   (8 spp), ``render`` at 8 spp with ``fused="off"``; the same renders and
+   the CLI with ``sampler="halton"``, and with the Mitchell filter; then
+   the bench's mesh leg, ``render(mesh, spp=16, kspp=16, spp_per_pass=16)``
+   with ``fused="off"`` and with ``fused="on"`` (hash and Halton), the CLI
+   on ``cornell-mesh``, and ``trace_paths_fused_sorted`` on the leg's
+   1,048,576 camera rays (hash and Halton), held to ``pt_fused_bvh`` on
+   the same rays;
 4. the mesh kernels against their plain versions at the main path's own
    launches, recorded from one more render of each route: kernel 4 at a
    1,048,576-ray launch (sorted, with parked dead rays), kernel 5 at the
    1,048,576-path launch (every 8th path held to ``trace_paths``); then
    timing lines: each kernel's device time per launch (torch.profiler),
    the wrapper call's time (CUDA events), its plain version's time,
-   launches per spp and its bound; the Mpaths/s of repeated renders of
-   both scenes and routes, and of the ``fused="off"`` route with and
-   without the ray sort and Morton pixel order; traced renders'
-   device-busy shares; then one JSON line with every kernel, and as the
-   last line ``{"ok": true, "device": ...}``.
+   launches per spp and its bound; the single-bounce kernel's device time
+   (CUDA events around launches queued behind a device sleep) and bound
+   at each depth, and the sort and gather between depths; the
+   Mpaths/s of repeated renders of both scenes and routes, of the
+   ``fused="off"`` route with and without the ray sort and Morton pixel
+   order, and of the depth-sorted wavefront against the fused kernel in
+   turns; traced renders' device-busy shares; then one JSON line with
+   every kernel, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -56,6 +70,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 FP32_FLOPS = 67e12  # non-tensor FP32
+INT32_OPS = 33.5e12  # 64 of an SM's 128 FP32 lanes also run INT32 (Hopper
+# white paper): half the FP32 rate
 HBM_BYTES_S = 3.35e12
 
 W = H = 256
@@ -72,6 +88,17 @@ MESH_SUBDIV = 64
 MESH_SPP = 16
 MESH_PARITY_STRIDE = 8  # kernel 5 at its main-path launch: every 8th path
 MESH_CLI_SPP = 4
+K6_CHECK_DEPTHS = (0, 1, 3)  # kernel 6 held to bounce_step at these depths
+K6_STRIDE = 8  # ... on every 8th path of the 1,048,576-path pass
+K6_BYTES_LIVE = 148  # a live path: 20 planes read, 17 written, 4 B each
+K6_BYTES_DEAD = 4  # a dead path: its alive flag
+# the Halton sampler's integer work: pcg4d for the pixel seed (~36
+# operations), then per odd-base digit a division, the digit, the prefix
+# hash (pcg_hash and its key, 11), the scrambled digit's sum and modulo,
+# the prefix update and the conversion (~20 in all)
+PCG4D_OPS = 36
+HALTON_DIGIT_OPS = 20
+HALTON_BASE2_OPS = 14
 # flop model of bench.py: ~45 flops per ray-triangle test, ~800 per
 # shaded hit; a BVH slab test of one child box: 6 subtractions, 6
 # multiplies, 6 min/max to order the slab ends, 3 max for tn, 3 min for
@@ -123,6 +150,34 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[reps // 2]
+
+
+def queued_ms(make_launch, n: int = 5, reps: int = 3) -> float:
+    """Device time per launch of ``n`` launches run back to back, each
+    ``make_launch()`` returning a callable that launches one kernel (its
+    inputs made beforehand): the median over ``reps`` windows of CUDA
+    events around the launches, queued behind a ~2 ms device sleep so the
+    host has queued them all before the first one starts. This times the
+    device alone where the profiler loses records: it kept 0-3 of 5 of
+    back-to-back single-bounce launches that no PyTorch op precedes."""
+    import torch
+
+    for _ in range(3):
+        make_launch()()
+    times = []
+    for _ in range(reps):
+        launches = [make_launch() for _ in range(n)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        for launch in launches:
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return sorted(times)[reps // 2]
 
 
@@ -202,9 +257,31 @@ def traced_render(fn, spp: int, kernels: dict):
     return busy / spp, per_kernel, n_launch / spp, n_sync / spp, wall / spp
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
+def bound(flops: float, nbytes: float, int_ops: float = 0.0):
+    t_ops = flops / FP32_FLOPS + int_ops / INT32_OPS
+    t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def halton_int_ops(R, dims) -> int:
+    """Integer operations of one Halton draw of each dimension in
+    ``dims`` (the kernel's halton_owen)."""
+    ops = 0
+    for dim in dims:
+        base = R.PRIMES[dim % len(R.PRIMES)]
+        ops += PCG4D_OPS + (HALTON_BASE2_OPS if base == 2
+                            else R.n_digits(base) * HALTON_DIGIT_OPS)
+    return ops
+
+
+def halton_depth0_dims(R, rr_start_depth: int):
+    """The Halton dimensions a shaded path draws in the kernel at depth 0
+    (light pick and sample, BSDF sample and lobe; roulette only when it
+    starts at depth 0), below the default qmc_dims. The camera's two dims
+    are drawn outside the kernel."""
+    dims = [R.Dim.LIGHT_SELECT, R.Dim.LIGHT_U, R.Dim.LIGHT_U + 1, R.Dim.BSDF_U,
+            R.Dim.BSDF_U + 1, R.Dim.BSDF_UC] + ([R.Dim.RR] if rr_start_depth == 0 else [])
+    return [int(x) for x in dims if x < R.QMC_DIMS]
 
 
 def first_occluder_tests(o, d, v0, e0, e1, t_max) -> int:
@@ -230,7 +307,7 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
     import torch
 
     n_tris = scene.num_triangles
-    count = {"hits": 0, "tests": 0}
+    count = {"hits": 0, "tests": 0, "hits0": None}
     live = {}
     bounce_step, nee, any_hit = MK.bounce_step, MK._nee, MK._any
 
@@ -243,6 +320,8 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
         hit = args[5]
         shaded = live["alive"] & hit.hit
         count["hits"] += int(shaded.sum())
+        if count["hits0"] is None:
+            count["hits0"] = int(shaded.sum())
         shadow = {}
 
         def unoccluded(scene, cfg, so, sd, t_max, alive=None):
@@ -266,7 +345,7 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
         MK.trace_paths(scene, cfg, px, py, sample, o, d, device=o.device)
     finally:
         MK.bounce_step, MK._nee = bounce_step, nee
-    return count["hits"], count["tests"]
+    return count["hits"], count["tests"], count["hits0"]
 
 
 def traversal_counts(scene, o, d, mode="closest", t_max=None):
@@ -299,42 +378,48 @@ def traversal_work(scene, o, d, mode="closest", t_max=None):
 
 
 def bvh_fused_work(MK, scene, cfg, px, py, sample, o, d):
-    """(hits shaded, boxes slab-tested, triangles tested) that the fused
-    BVH kernel's paths need, counted on a run of its plain version
+    """(hits shaded, boxes slab-tested, triangles tested) per depth that
+    the BVH kernels' paths need (the fused kernel's, and the single-bounce
+    kernel's at each depth), counted on a run of their plain version
     ``MK.trace_paths`` over the same paths: per bounce, every live path's
     closest-hit traversal, and the shadow ray's any-hit traversal where
     the light sample's contribution is non-zero (the rays the plain
     integrator marks live for the BVH kernels), each walked by
-    ``traverse_packed_ref``."""
-    count = {"hits": 0, "slabs": 0, "tests": 0}
-    closest, any_hit = MK._closest, MK._any
+    ``traverse_packed_ref`` → three lists, one entry per depth."""
+    count = {"hits": [], "slabs": [], "tests": []}
+    closest, any_hit, bounce_step = MK._closest, MK._any, MK.bounce_step
 
     def add(slabs_tests):
-        count["slabs"] += slabs_tests[0]
-        count["tests"] += slabs_tests[1]
+        count["slabs"][-1] += slabs_tests[0]
+        count["tests"][-1] += slabs_tests[1]
+
+    def counting_bounce(*args):
+        for v in count.values():
+            v.append(0)
+        return bounce_step(*args)
 
     def counting_closest(scene, cfg, o, d, alive=None):
         hit = closest(scene, cfg, o, d, alive=alive)
         add(traversal_counts(scene, o[alive], d[alive]))
-        count["hits"] += int((hit.hit & alive).sum())
+        count["hits"][-1] += int((hit.hit & alive).sum())
         return hit
 
     def counting_any(scene, cfg, o, d, t_max, alive=None):
         add(traversal_counts(scene, o[alive], d[alive], "any", t_max[alive]))
         return any_hit(scene, cfg, o, d, t_max, alive=alive)
 
-    MK._closest, MK._any = counting_closest, counting_any
+    MK._closest, MK._any, MK.bounce_step = counting_closest, counting_any, counting_bounce
     try:
         MK.trace_paths(scene, cfg, px, py, sample, o, d, device=o.device)
     finally:
-        MK._closest, MK._any = closest, any_hit
+        MK._closest, MK._any, MK.bounce_step = closest, any_hit, bounce_step
     return count["hits"], count["slabs"], count["tests"]
 
 
-def camera_rays(scene, spp: int, morton: bool = False):
+def camera_rays(scene, spp: int, morton: bool = False, sampler: str = "hash"):
     """Camera rays of samples 0..spp-1 for every pixel, as
-    ``render_sample_batch`` makes them (pixel order Morton or row-major)
-    → (px, py, sample, o, d)."""
+    ``render_sample_batch`` makes them (pixel order Morton or row-major,
+    box filter, the given sampler) → (px, py, sample, o, d)."""
     import torch
 
     from cuda_optix_pathtracing_tpu_torch.ops import rng as R
@@ -349,7 +434,7 @@ def camera_rays(scene, spp: int, morton: bool = False):
     sample = torch.repeat_interleave(torch.arange(spp, dtype=torch.int64, device=dev), W * H)
     px = pix[:, 0].to(torch.int64)
     py = pix[:, 1].to(torch.int64)
-    u1, u2 = R.Sampler("hash", 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
+    u1, u2 = R.Sampler(sampler, 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
     o, d = generate_rays(
         pix + torch.stack([u1, u2], -1), scene.cam_from_raster, scene.world_from_cam
     )
@@ -464,7 +549,7 @@ def check_closest(label, tk, ik, tp, ip) -> float:
     return float(dt[both].max())
 
 
-def check_parity(label, rad_k, rad_p, spp: int) -> float:
+def check_parity(label, rad_k, rad_p, spp: int, ref: str = "trace_paths") -> float:
     """The reference parity bar on per-pixel means over ``spp`` samples →
     max abs pixel difference."""
     import torch
@@ -475,9 +560,51 @@ def check_parity(label, rad_k, rad_p, spp: int) -> float:
     diff = (acc_k - acc_p).abs() / spp
     check(bool(torch.isfinite(rad_k).all()), f"{label}: finite radiance")
     check(float(diff.mean()) < 1e-4,
-          f"{label} vs trace_paths: mean abs diff {float(diff.mean()):.2e} < 1e-4")
+          f"{label} vs {ref}: mean abs diff {float(diff.mean()):.2e} < 1e-4")
     frac = float((diff.max(-1).values > 1e-3).float().mean())
-    check(frac < 0.005, f"{label} vs trace_paths: {frac:.5f} of pixels off by > 1e-3 (< 0.005)")
+    check(frac < 0.005, f"{label} vs {ref}: {frac:.5f} of pixels off by > 1e-3 (< 0.005)")
+    return float(diff.max())
+
+
+def check_planes(MKC, label, sk, sp) -> float:
+    """The single-bounce kernel's state ``sk`` against the plain bounce's
+    ``sp`` (the same paths), plane by plane: the keys and slots equal; the
+    flags (alive, inside, prev_delta) equal on 99.99 % of the paths; o and
+    d within 1e-5 (relative, or absolute near 0); beta, eta_scale and
+    prev_pdf within 1e-5 relative on 99 % of the paths and within 1e-3 on
+    99.9 %; radiance within the parity bar → max abs radiance error. The
+    kernel rounds the shading math otherwise than PyTorch (FMAs, acosf): a
+    few ulp, which a sharp GGX lobe's pdf, a ratio f / pdf or the
+    Oren-Nayar term's cancellation can magnify past 1e-5, and which can
+    flip a lobe or roulette decision that lies within them."""
+    import torch
+
+    torch.cuda.synchronize()
+    ik, ip = sk.view(torch.int32), sp.view(torch.int32)
+    n = sk.shape[1]
+    for name, p in (("px", MKC.PX), ("py", MKC.PY), ("sample", MKC.SAMPLE), ("slot", MKC.SLOT)):
+        check(bool((ik[p] == ip[p]).all()), f"{label}: {name} plane equal")
+    for name, p in (("alive", MKC.ALIVE), ("inside", MKC.INSIDE), ("prev_delta", MKC.PREV_DELTA)):
+        n_diff = int((ik[p] != ip[p]).sum())
+        check(n_diff <= 1e-4 * n, f"{label}: {name} plane equal on all but {n_diff} of {n} "
+              f"paths (<= 0.01 %)")
+    gap = (sk[:MKC.BETA] - sp[:MKC.BETA]).abs()
+    tol = 1e-5 * torch.maximum(sp[:MKC.BETA].abs(), torch.ones_like(gap))
+    check(bool((gap <= tol).all()),
+          f"{label}: o, d within 1e-5 (max abs {float(gap.max()):.2e})")
+    for name, p0, p1 in (("beta", MKC.BETA, MKC.BETA + 3), ("eta_scale", MKC.ETA_SCALE, MKC.ETA_SCALE + 1),
+                         ("prev_pdf", MKC.PREV_PDF, MKC.PREV_PDF + 1)):
+        rel = (sk[p0:p1] - sp[p0:p1]).abs() / sp[p0:p1].abs().clamp(min=1e-30)
+        frac = float((rel > 1e-5).float().mean())
+        frac3 = float((rel > 1e-3).float().mean())
+        check(frac <= 1e-2 and frac3 <= 1e-3,
+              f"{label}: {name} within 1e-5 relative on {1 - frac:.6f} of the paths (>= 0.99), "
+              f"within 1e-3 on {1 - frac3:.6f} (>= 0.999); max rel {float(rel.max()):.2e}")
+    rad = slice(MKC.RADIANCE, MKC.RADIANCE + 3)
+    diff = (sk[rad] - sp[rad]).abs()
+    check(float(diff.mean()) < 1e-4 and float((diff.max(0).values > 1e-3).float().mean()) < 0.005,
+          f"{label}: radiance mean abs diff {float(diff.mean()):.2e} < 1e-4, "
+          f"{float((diff.max(0).values > 1e-3).float().mean()):.5f} of paths off by > 1e-3")
     return float(diff.max())
 
 
@@ -515,6 +642,8 @@ def main() -> int:
     from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
     from cuda_optix_pathtracing_tpu_torch.ops import _cuda_build
     from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops import rng as R
+    from cuda_optix_pathtracing_tpu_torch.ops.filters import filter_sampler
     from cuda_optix_pathtracing_tpu_torch.ops.film import film_sqrt_mse, srgb_encode, to_uint8
     from cuda_optix_pathtracing_tpu_torch.ops.intersect import (
         intersect_any,
@@ -598,6 +727,15 @@ def main() -> int:
     rad_k = trace_paths_fused(scene, px, py, sample, cam_o, cam_d, max_depth=DEPTH)
     rad_p = MK.trace_paths(scene, cfg_plain, px, py, sample, cam_o, cam_d, device=dev)
     err["fused"] = check_parity("fused", rad_k, rad_p, PARITY_SPP)
+    # kernel 1h, brute force: the Halton instantiation on Halton camera rays
+    hpx, hpy, hsample, h_o, h_d = camera_rays(scene, PARITY_SPP, sampler="halton")
+    cfg_hplain = MK.MegakernelConfig(max_depth=DEPTH, backend="torch", fused="off",
+                                     sampler="halton")
+    rad_k = trace_paths_fused(scene, hpx, hpy, hsample, h_o, h_d, max_depth=DEPTH,
+                              sampler="halton")
+    rad_p = MK.trace_paths(scene, cfg_hplain, hpx, hpy, hsample, h_o, h_d, device=dev)
+    err["fused_halton"] = check_parity(f"fused Halton ({h_o.shape[0]} paths)", rad_k, rad_p,
+                                       PARITY_SPP)
 
     # the mesh scene: the traversal kernels on Morton-ordered camera rays and
     # on the live bounce and cast shadow rays of one depth of a plain run
@@ -628,10 +766,51 @@ def main() -> int:
               f"({int(op_.sum())} occluded, {n_diff} differ)")
         err["bvh_anyhit"] = max(err.get("bvh_anyhit", 0.0), float(n_diff > 0))
 
+    # kernel 1h, BVH mode: all of PARITY_SPP Halton samples of the mesh in
+    # Morton order, every 8th path held to the plain version
+    mhpx, mhpy, mhs, mho, mhd = camera_rays(mesh, PARITY_SPP, morton=True, sampler="halton")
+    rad_k = trace_paths_fused(mesh, mhpx, mhpy, mhs, mho, mhd, max_depth=DEPTH, sampler="halton")
+    sub = torch.arange(0, mho.shape[0], MESH_PARITY_STRIDE, device=dev)
+    rad_p = MK.trace_paths(mesh, cfg_hplain, mhpx[sub], mhpy[sub], mhs[sub], mho[sub], mhd[sub],
+                           device=dev)
+    err["fused_bvh_halton"] = check_parity(
+        f"fused BVH Halton (every {MESH_PARITY_STRIDE}th of {mho.shape[0]} paths)",
+        rad_k[sub], rad_p, PARITY_SPP)
+
+    # kernel 6 on the mesh leg's pass (16 spp of Morton-ordered camera rays,
+    # 1,048,576 paths) at the depths of K6_CHECK_DEPTHS, sorted as the
+    # route sorts them, against the plain bounce on every 8th path
+    n_pass = W * H * MESH_SPP
+    print(f"phase 2, kernel 6: pt_bounce_bvh against bounce_step on the {n_pass}-path "
+          f"mesh pass, every {K6_STRIDE}th path, depths {K6_CHECK_DEPTHS}")
+    err["bounce"] = 0.0
+    for smp, depths in (("hash", K6_CHECK_DEPTHS), ("halton", (0,))):
+        st = MKC.pack_path_state(*camera_rays(mesh, MESH_SPP, morton=True, sampler=smp))
+        for depth in range(max(depths) + 1):
+            if depth:
+                st = MKC.sort_paths(mesh, st)
+            if depth in depths:
+                sub = torch.arange(0, n_pass, K6_STRIDE, device=dev)
+                sp = st[:, sub].contiguous()
+                MKC.bounce_plain(mesh, sp, depth, sampler=smp)
+                n_dead = int((st.view(torch.int32)[MKC.ALIVE] == 0).sum())
+                before = st.clone()
+                MKC.bounce_fused(mesh, st, depth, sampler=smp)
+                dead = before.view(torch.int32)[MKC.ALIVE] == 0
+                check(bool((st[:, dead] == before[:, dead]).all()),
+                      f"kernel 6 {smp} depth {depth}: the {n_dead} dead paths' planes untouched")
+                err["bounce"] = max(err["bounce"], check_planes(
+                    MKC, f"kernel 6 {smp} depth {depth} ({n_dead} dead of {n_pass})",
+                    st[:, sub], sp))
+                del before
+            else:
+                MKC.bounce_fused(mesh, st, depth, sampler=smp)
+    del st
+
     # ---- 3. the main paths -------------------------------------------------
     print("phase 3: main paths")
     counters = (trace_paths_fused, closest_bruteforce, anyhit_bruteforce,
-                BV.bvh_closest_raw, BV.bvh_any_raw)
+                BV.bvh_closest_raw, BV.bvh_any_raw, MKC.bounce_fused)
 
     def zero():
         torch.cuda.synchronize()
@@ -660,14 +839,14 @@ def main() -> int:
             write_png(path, to_uint8(srgb_encode(img)).cpu().numpy())
         check(all(os.path.getsize(p) > 0 for p in paths), "wrote the mean and sqrt-MSE PNGs")
 
-    def run_cli(scene_name: str, spp: int):
+    def run_cli(scene_name: str, spp: int, extra=()):
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "cli.png")
             zero()
             rc = cli.main(["--scene", scene_name, "--out", out, "--spp", str(spp),
-                           "--log-level", "warning"])
+                           "--log-level", "warning", *extra])
             launches = read()
-            print(f"  CLI --scene {scene_name} --spp {spp}: {launches}")
+            print(f"  CLI --scene {scene_name} --spp {spp} {' '.join(extra)}: {launches}")
             check(rc == 0 and os.path.getsize(out) > 0
                   and os.path.getsize(os.path.join(tmp, "cli_sqrt_mse.png")) > 0,
                   f"the CLI on {scene_name} wrote the mean and sqrt-MSE PNGs")
@@ -686,6 +865,44 @@ def main() -> int:
     check(bool(torch.isfinite(film_off.mean).all()), "fused='off' film finite")
     check_means_agree(f"fused ({SPP_FUSED} spp) and fused='off' ({SPP_OFF} spp)",
                       film_on, film_off)
+
+    # the Halton sampler, with the box and with the Mitchell filter, down
+    # both routes; and the CLI with --sampler halton
+    films_h = {}
+    launches_h = {}
+    for filt in ("box", "mitchell"):
+        for route, spp in (("on", SPP_FUSED), ("off", SPP_OFF)):
+            cfg_r = MK.MegakernelConfig(sampler="halton", pixel_filter=filt, fused=route)
+            zero()
+            films_h[filt, route] = MK.render(main_scene, W, H, spp=spp, cfg=cfg_r)
+            launches_h[filt, route] = read()
+            print(f"  render Halton, {filt} filter, fused='{route}' ({spp} spp): "
+                  f"{launches_h[filt, route]}")
+            lh = launches_h[filt, route]
+            if route == "on":
+                check(lh["trace_paths_fused"] == SPP_FUSED and lh["closest_bruteforce"] == 0,
+                      f"Halton {filt} render went through the fused kernel, one launch per spp")
+            else:
+                check(lh["trace_paths_fused"] == 0 and lh["closest_bruteforce"] > 0
+                      and lh["anyhit_bruteforce"] > 0,
+                      f"Halton {filt} fused='off' render went through the closest-hit and "
+                      f"any-hit kernels")
+            fm = films_h[filt, route].mean
+            check(bool(torch.isfinite(fm).all()) and float(fm.mean()) > 0.0,
+                  f"Halton {filt} fused='{route}' film finite, mean {float(fm.mean()):.5f} > 0")
+        check_means_agree(f"Halton {filt}: fused ({SPP_FUSED} spp) and fused='off' ({SPP_OFF} spp)",
+                          films_h[filt, "on"], films_h[filt, "off"])
+    check_means_agree("Halton and hash, box filter, fused", films_h["box", "on"], film_on)
+    # sign-weighted filter importance sampling scales the image by
+    # sum(f) / sum(|f|) of the filter, so the Mitchell film is held to its
+    # own routes above and its mean ratio to the box film only printed
+    ftab = filter_sampler(str(dev)).table
+    ratio = float(films_h["mitchell", "on"].mean.mean() / films_h["box", "on"].mean.mean())
+    print(f"  Mitchell / box film mean {ratio:.5f}; the filter's sum(f)/sum(|f|) "
+          f"{float(ftab.sum() / ftab.abs().sum()):.5f}")
+    launches_hcli = run_cli("cornell", SPP_CLI, ("--sampler", "halton"))
+    check(launches_hcli["trace_paths_fused"] == SPP_CLI,
+          "the CLI with --sampler halton rendered through the fused kernel, one launch per spp")
 
     # the bench's mesh leg: 16 spp traced as one pass, both routes
     mesh_main = cornell_box_mesh(W, H, subdiv=MESH_SUBDIV)
@@ -722,6 +939,46 @@ def main() -> int:
     launches_mcli = run_cli("cornell-mesh", MESH_CLI_SPP)
     check(launches_mcli["trace_paths_fused"] == MESH_CLI_SPP,
           "the CLI on cornell-mesh took the fused BVH kernel (auto), one launch per spp")
+
+    # the mesh leg with the Halton sampler through the fused BVH kernel
+    cfg_mhal = MK.MegakernelConfig(fused="on", sampler="halton")
+    zero()
+    film_mhal = MK.render(mesh_main, W, H, cfg=cfg_mhal, **mesh_kw)
+    launches_mhal = read()
+    print(f"  render mesh Halton fused='on' ({MESH_SPP} spp, one pass): {launches_mhal}")
+    check(launches_mhal["trace_paths_fused"] == 1,
+          "the mesh render with the Halton sampler went through the fused BVH kernel, one launch")
+    check_means_agree("mesh Halton and hash, fused='on'", film_mhal, film_mon)
+
+    # the depth-sorted fused wavefront on the leg's one pass: 1,048,576
+    # camera rays in Morton order, one single-bounce launch per depth, held
+    # to the fused BVH kernel on the same rays (the reference holds its
+    # sorted route to its fused kernel at atol 1e-6, rtol 1e-5)
+    sorted_rays = {}
+    launches_sorted = {}
+    rad_sorted = {}
+    for smp in ("hash", "halton"):
+        sorted_rays[smp] = camera_rays(mesh_main, MESH_SPP, morton=True, sampler=smp)
+        zero()
+        rad_sorted[smp] = MKC.trace_paths_fused_sorted(mesh_main, *sorted_rays[smp],
+                                                       max_depth=DEPTH, sampler=smp)
+        launches_sorted[smp] = read()
+        print(f"  trace_paths_fused_sorted {smp} ({n_pass} paths): {launches_sorted[smp]}")
+        check(launches_sorted[smp]["bounce_fused"] == DEPTH
+              and launches_sorted[smp]["trace_paths_fused"] == 0,
+              f"the sorted route ({smp}) went through the single-bounce kernel, once per depth")
+        rs = rad_sorted[smp]
+        check(bool(torch.isfinite(rs).all()) and rs.shape == (n_pass, 3) and float(rs.mean()) > 0,
+              f"sorted route ({smp}): finite radiance of {n_pass} paths, mean {float(rs.mean()):.5f}")
+        rf = trace_paths_fused(mesh_main, *sorted_rays[smp], max_depth=DEPTH, sampler=smp)
+        torch.cuda.synchronize()
+        close = bool(torch.allclose(rs, rf, atol=1e-6, rtol=1e-5))
+        n_far = int((~torch.isclose(rs, rf, atol=1e-6, rtol=1e-5)).any(-1).sum())
+        print(f"  sorted route ({smp}) against pt_fused_bvh on the same paths: "
+              f"atol 1e-6 / rtol 1e-5 {'holds' if close else 'does not hold'} "
+              f"({n_far} of {n_pass} paths outside it, max abs diff "
+              f"{float((rs - rf).abs().max()):.2e})")
+        check_parity(f"sorted route ({smp})", rs, rf, MESH_SPP, ref="pt_fused_bvh")
 
     # ---- 4. the main paths' own launches, and timing -----------------------
     print(f"phase 4: the mesh kernels at the main path's own launches, and timing {tag}")
@@ -797,22 +1054,31 @@ def main() -> int:
         for o, d, tm in rec["any"]:
             BV.bvh_any_raw(o, d, mesh_main, tm)
 
+    hpx1, hpy1, hs1, ho1, hd1 = (x[:n1] for x in (hpx, hpy, hsample, h_o, h_d))
+    mhpx1, mhpy1, mhs1, mho1, mhd1 = (x[:n1] for x in (mhpx, mhpy, mhs, mho, mhd))
     calls = {
         "fused": (lambda: trace_paths_fused(scene, px1, py1, s1, o1, d1, max_depth=DEPTH), 1),
+        "fused_halton": (lambda: trace_paths_fused(scene, hpx1, hpy1, hs1, ho1, hd1,
+                                                   max_depth=DEPTH, sampler="halton"), 1),
         "closest": (lambda: closest_bruteforce(o1, d1, v0, e0, e1), 1),
         "anyhit": (lambda: anyhit_bruteforce(ro1, rd1, v0, e0, e1, tm1), 1),
         "bvh_closest": (replay_closest, len(rec["closest"])),
         "bvh_anyhit": (replay_any, len(rec["any"])),
         "fused_bvh": (lambda: trace_paths_fused(mesh, mpx1, mpy1, ms1, mo1, md1,
                                                 max_depth=DEPTH), 1),
+        "fused_bvh_halton": (lambda: trace_paths_fused(mesh, mhpx1, mhpy1, mhs1, mho1, mhd1,
+                                                       max_depth=DEPTH, sampler="halton"), 1),
     }
     kernel_names = {
-        "fused": ("::pt_fused_kernel<", "BruteGeo>"),
+        "fused": ("::pt_fused_kernel<", "BruteGeo,", "HashRng>"),
+        "fused_halton": ("::pt_fused_kernel<", "BruteGeo,", "HaltonRng>"),
         "closest": "::closest_kernel(",
         "anyhit": "::anyhit_kernel(",
         "bvh_closest": "::bvh_closest_kernel(",
         "bvh_anyhit": "::bvh_anyhit_kernel(",
-        "fused_bvh": ("::pt_fused_kernel<", "BvhGeo>"),
+        "fused_bvh": ("::pt_fused_kernel<", "BvhGeo,", "HashRng>"),
+        "fused_bvh_halton": ("::pt_fused_kernel<", "BvhGeo,", "HaltonRng>"),
+        "bounce": ("::pt_bounce_kernel<", "HashRng>"),
     }
     ms = {k: kernel_ms(fn, 4 if per > 1 else 20, kernel_names[k], per)
           for k, (fn, per) in calls.items()}
@@ -833,13 +1099,64 @@ def main() -> int:
 
     plain_ms = {
         "fused": cuda_ms(lambda: MK.trace_paths(scene, cfg_plain, px1, py1, s1, o1, d1, device=dev), 1),
+        "fused_halton": cuda_ms(lambda: MK.trace_paths(scene, cfg_hplain, hpx1, hpy1, hs1, ho1, hd1,
+                                                       device=dev), 1),
         "closest": cuda_ms(lambda: closest_plain(o1, d1, v0, e0, e1), 10),
         "anyhit": cuda_ms(lambda: any_plain(ro1, rd1, v0, e0, e1, tm1), 10),
         "bvh_closest": cuda_ms(plain_closest, 1, reps=1),
         "bvh_anyhit": cuda_ms(plain_any, 1, reps=1),
         "fused_bvh": cuda_ms(lambda: MK.trace_paths(mesh, cfg_plain, mpx1, mpy1, ms1, mo1, md1,
                                                     device=dev), 1, reps=1),
+        "fused_bvh_halton": cuda_ms(lambda: MK.trace_paths(mesh, cfg_hplain, mhpx1, mhpy1, mhs1,
+                                                           mho1, mhd1, device=dev), 1, reps=1),
     }
+
+    # kernel 6 per depth at the main path's own launches: the states that
+    # one more sorted pass (hash) hands each launch, and the unsorted
+    # states the sort between depths takes
+    k6_in, k6_unsorted = [], []
+    st = MKC.pack_path_state(*sorted_rays["hash"])
+    for depth in range(DEPTH):
+        if depth:
+            k6_unsorted.append(st.clone())
+            st = MKC.sort_paths(mesh_main, st)
+        k6_in.append(st.clone())
+        MKC.bounce_fused(mesh_main, st, depth)
+    check(torch.equal(rad_sorted["hash"][st.view(torch.int32)[MKC.SLOT].long()],
+                      st[MKC.RADIANCE:MKC.RADIANCE + 3].T),
+          "the recorded sorted pass repeats the main path's radiance bit for bit")
+    del st
+    k6_live = [int((x.view(torch.int32)[MKC.ALIVE] != 0).sum()) for x in k6_in]
+    # each timed launch on its own copy of its depth's state
+    def k6_launch(x, dep, **kw):
+        c = x.clone()
+        return lambda: MKC.bounce_fused(mesh_main, c, dep, **kw)
+
+    k6_ms = [queued_ms(lambda x=x, dep=dep: k6_launch(x, dep)) for dep, x in enumerate(k6_in)]
+    k6_h0 = MKC.pack_path_state(*sorted_rays["halton"])
+    k6_halton0_ms = queued_ms(lambda: k6_launch(k6_h0, 0, sampler="halton"))
+    del k6_h0
+    sort_ms = []
+    for x in k6_unsorted:
+        warm_up(lambda x=x: MKC.sort_paths(mesh_main, x))
+        _, rows = profiled(lambda x=x: [MKC.sort_paths(mesh_main, x) for _ in range(5)])
+        sort_ms.append(sum(e.self_device_time_total for e in device_rows(rows)) / 1e3 / 5)
+    ms["bounce"] = sum(k6_ms) / len(k6_ms)
+    call_ms["bounce"] = cuda_ms(lambda: MKC.bounce_fused(mesh_main, k6_in[1].clone(), 1), 5)
+    k6_plain_state = k6_in[1].clone()
+    plain_ms["bounce"] = cuda_ms(lambda: MKC.bounce_plain(mesh_main, k6_plain_state.clone(), 1),
+                                 1, reps=1)
+    del k6_plain_state
+    # the depth-sorted wavefront against the fused kernel on the same
+    # 1,048,576 rays, in turns, host clock around each call
+    route_rep = {"sorted": [], "fused": []}
+    for route in ("sorted", "fused", "fused", "sorted"):
+        fn = MKC.trace_paths_fused_sorted if route == "sorted" else trace_paths_fused
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(mesh_main, *sorted_rays["hash"], max_depth=DEPTH)
+        torch.cuda.synchronize()
+        route_rep[route].append(n_pass / (time.perf_counter() - t0) / 1e6)
     for label, o, d in (("closest", o_c, d_c), ("any", o_a, d_a)):
         n_dead = int((o[:, 0] == MK._DEAD_ORIGIN).sum())
         print(f"  bvh {label} at the main path's depth-1 launch: {o.shape[0]} sorted rays, "
@@ -863,16 +1180,27 @@ def main() -> int:
 
     # data-dependent work of the timed launches, counted on the plain
     # versions: the any-hit kernel stops at the first occluder
-    hits, tests = fused_work(MK, scene, cfg_plain, px1, py1, s1, o1, d1)
+    hits, tests, _ = fused_work(MK, scene, cfg_plain, px1, py1, s1, o1, d1)
+    hhits, htests, hhits0 = fused_work(MK, scene, cfg_hplain, hpx1, hpy1, hs1, ho1, hd1)
+    h0_dims = halton_depth0_dims(R, 2)
+    hint = hhits0 * halton_int_ops(R, h0_dims)
     any_tests = first_occluder_tests(ro1, rd1, v0, e0, e1, tm1)
     # traversals: traverse_packed_ref over BOUND_SAMPLE rays of each
     # recorded launch, and over every 32nd path of the fused BVH launch
     work_c = [traversal_work(mesh_main, o, d) for o, d in rec["closest"]]
     work_a = [traversal_work(mesh_main, o, d, "any", tm) for o, d, tm in rec["any"]]
     step = n1 // BOUND_SAMPLE
-    bhits, bslabs, btests = bvh_fused_work(
+    bhits, bslabs, btests = (sum(x) for x in bvh_fused_work(
         MK, mesh, cfg_plain, mpx1[::step], mpy1[::step], ms1[::step], mo1[::step], md1[::step]
-    )
+    ))
+    bh_work = bvh_fused_work(MK, mesh, cfg_hplain, mhpx1[::step], mhpy1[::step], mhs1[::step],
+                             mho1[::step], mhd1[::step])
+    bhh, bhslabs, bhtests = (sum(x) for x in bh_work)
+    # kernel 6: the work per depth of BOUND_SAMPLE paths of the pass, drawn
+    # with a fixed seed, scaled to its 1,048,576
+    pick = torch.as_tensor(np.random.default_rng(0).choice(n_pass, BOUND_SAMPLE, replace=False),
+                           device=dev)
+    k6_work = bvh_fused_work(MK, mesh_main, cfg_plain, *(x[pick] for x in sorted_rays["hash"]))
 
     # where the main paths' time goes: one traced render of each (the
     # profiler slows the host, so the wall times that count are the
@@ -883,6 +1211,9 @@ def main() -> int:
                             MESH_SPP, {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
     tr_mon = traced_render(lambda: MK.render(mesh_main, W, H, cfg=cfg_mon, **mesh_kw),
                            MESH_SPP, {"fused_bvh": kernel_names["fused_bvh"]})
+    tr_sorted = traced_render(
+        lambda: MKC.trace_paths_fused_sorted(mesh_main, *sorted_rays["hash"], max_depth=DEPTH),
+        MESH_SPP, {"bounce": kernel_names["bounce"]})
     tr_var = {key: tr_moff if key == ("on", "morton") else traced_render(
         lambda c=c: MK.render(mesh_main, W, H, cfg=c, **mesh_kw), MESH_SPP,
         {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
@@ -902,10 +1233,26 @@ def main() -> int:
     bvh_bytes = mesh.bvh.box.numel() * 4 + mesh.bvh.meta.numel() * 4 + mesh.num_triangles * 36
     b_bvh_closest = bound(sum(w[0] for w in work_c) / len(work_c), n_bvh * 32 + bvh_bytes)
     b_bvh_any = bound(sum(w[0] for w in work_a) / len(work_a), n_bvh * 32 + bvh_bytes)
+    b_fused_h = bound(htests * MT_FLOPS + hhits * SHADE_FLOPS, n1 * (24 + 12 + 12), hint)
     scale = n1 / len(mpx1[::step])
     flops_fbvh = scale * (bslabs * SLAB_FLOPS + btests * MT_FLOPS + bhits * SHADE_FLOPS)
-    b_fused_bvh = bound(flops_fbvh, n1 * 48 + bvh_bytes + mesh.num_triangles * 4
-                        + mesh.shade_tables.numel() * 4)
+    shade_bytes = mesh.num_triangles * 4 + mesh.shade_tables.numel() * 4
+    b_fused_bvh = bound(flops_fbvh, n1 * 48 + bvh_bytes + shade_bytes)
+    flops_fbvh_h = scale * (bhslabs * SLAB_FLOPS + bhtests * MT_FLOPS + bhh * SHADE_FLOPS)
+    hint_bvh = scale * bh_work[0][0] * halton_int_ops(R, h0_dims)
+    b_fused_bvh_h = bound(flops_fbvh_h, n1 * 48 + bvh_bytes + shade_bytes, hint_bvh)
+    # kernel 6 per depth: live paths read 20 planes and write 17, dead paths
+    # read their flag; the node, triangle and shading tables once
+    k6_scale = n_pass / BOUND_SAMPLE
+    k6_bounds = [bound(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS),
+                       live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD + bvh_bytes
+                       + shade_bytes)
+                 for hi, sl, te, live in zip(*k6_work, k6_live)]
+    k6_flops = sum(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS)
+                   for hi, sl, te in zip(*k6_work))
+    k6_bytes = sum(live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD + bvh_bytes
+                   + shade_bytes for live in k6_live)
+    b_bounce = (sum(b[0] for b in k6_bounds) / DEPTH, bound(k6_flops, k6_bytes)[1])
 
     launches_main = {
         "fused": launches_on["trace_paths_fused"],
@@ -914,11 +1261,16 @@ def main() -> int:
         "bvh_closest": launches_moff["bvh_closest_raw"],
         "bvh_anyhit": launches_moff["bvh_any_raw"],
         "fused_bvh": launches_mon["trace_paths_fused"],
+        "fused_halton": launches_h["box", "on"]["trace_paths_fused"],
+        "fused_bvh_halton": launches_mhal["trace_paths_fused"],
+        "bounce": launches_sorted["hash"]["bounce_fused"] + launches_sorted["halton"]["bounce_fused"],
     }
     spp_of = {"fused": SPP_FUSED, "closest": SPP_OFF, "anyhit": SPP_OFF,
-              "bvh_closest": MESH_SPP, "bvh_anyhit": MESH_SPP, "fused_bvh": MESH_SPP}
+              "bvh_closest": MESH_SPP, "bvh_anyhit": MESH_SPP, "fused_bvh": MESH_SPP,
+              "fused_halton": SPP_FUSED, "fused_bvh_halton": MESH_SPP, "bounce": 2 * MESH_SPP}
     rays_of = {"fused": n1, "closest": n1, "anyhit": n1, "bvh_closest": n_bvh,
-               "bvh_anyhit": n_bvh, "fused_bvh": n1}
+               "bvh_anyhit": n_bvh, "fused_bvh": n1, "fused_halton": n1, "fused_bvh_halton": n1,
+               "bounce": n_pass}
     csrc = "cuda_optix_pathtracing_tpu_torch/csrc/"
     meta = {
         "fused": ("pt_fused_bruteforce", csrc + "megakernel.cu",
@@ -933,6 +1285,13 @@ def main() -> int:
                        "cuda_optix_pathtracing_tpu/ops/bvh_pallas.py:489", b_bvh_any),
         "fused_bvh": ("pt_fused_bvh", csrc + "megakernel.cu",
                       "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:1552", b_fused_bvh),
+        "fused_halton": ("pt_fused_bruteforce (halton)", csrc + "megakernel.cu",
+                         "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:309", b_fused_h),
+        "fused_bvh_halton": ("pt_fused_bvh (halton)", csrc + "megakernel.cu",
+                             "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:309",
+                             b_fused_bvh_h),
+        "bounce": ("pt_bounce_bvh", csrc + "megakernel.cu",
+                   "cuda_optix_pathtracing_tpu/models/megakernel_pallas.py:1725", b_bounce),
     }
     kernels = []
     for key, (name, src, repl, (bms, bby)) in meta.items():
@@ -949,6 +1308,34 @@ def main() -> int:
     print(f"  fused kernel work: {hits} hits shaded, {tests} ray-triangle tests for "
           f"{n1} paths ({flops_fused / n1:.0f} flop/path); any-hit: {any_tests / n1:.2f} "
           f"tests/ray of {n_tris}")
+    print(f"  fused Halton kernel work: {hhits} hits shaded ({hhits0} at depth 0), {htests} "
+          f"tests ({(htests * MT_FLOPS + hhits * SHADE_FLOPS) / n1:.0f} flop/path), Halton dims "
+          f"{h0_dims} at depth 0: {hint / n1:.0f} integer operations/path; BVH mode "
+          f"{flops_fbvh_h / n1:.0f} flop and {hint_bvh / n1:.0f} integer operations/path")
+    print(f"  ms per launch at {n1} paths, Halton against hash: brute force "
+          f"{ms['fused_halton']:.4f} vs {ms['fused']:.4f}, BVH {ms['fused_bvh_halton']:.4f} vs "
+          f"{ms['fused_bvh']:.4f} {tag}")
+    for dep in range(DEPTH):
+        hi, sl, te = (w[dep] for w in k6_work)
+        sort_txt = f"; sort + gather before it {sort_ms[dep - 1]:.4f} ms" if dep else ""
+        print(f"  pt_bounce_bvh depth {dep}: {k6_ms[dep]:.4f} ms on the device, {k6_live[dep]} of "
+              f"{n_pass} paths live, bound {k6_bounds[dep][0]:.4f} ms ({k6_bounds[dep][1]}); "
+              f"per sampled path {hi / BOUND_SAMPLE:.3f} hits, "
+              f"{sl / BOUND_SAMPLE:.1f} boxes, {te / BOUND_SAMPLE:.1f} triangles{sort_txt} {tag}")
+    print(f"  pt_bounce_bvh per pass: {sum(k6_ms):.4f} ms (Halton depth 0: {k6_halton0_ms:.4f} "
+          f"ms); sort + gather {sum(sort_ms):.4f} ms; pt_fused_bvh per launch of {n_pass}: see the "
+          f"traced render below {tag}")
+    busy_s, per_k_s, n_launch_s, _, _ = tr_sorted
+    wall_s = 1e3 / (np.mean(route_rep["sorted"]) * 1e6 / (W * H))
+    print(f"  routes on the same {n_pass} rays, in turns: sorted "
+          f"{', '.join(f'{m:.3f}' for m in route_rep['sorted'])}, fused "
+          f"{', '.join(f'{m:.3f}' for m in route_rep['fused'])} Mpaths/s (host clock, "
+          f"sync); sorted / fused {np.mean(route_rep['sorted']) / np.mean(route_rep['fused']):.3f} "
+          f"{tag}")
+    print(f"  traced sorted route, per spp: {wall_s:.3f} ms untraced wall, device busy "
+          f"{busy_s * 1e3:.3f} ms ({100 * busy_s * 1e3 / wall_s:.1f} %), kernel 6 "
+          f"{per_k_s['bounce'][0]} launches {per_k_s['bounce'][1] * 1e3:.3f} ms in the pass, "
+          f"{n_launch_s:.1f} kernel launches per spp {tag}")
     for label, work in (("closest", work_c), ("any-hit", work_a)):
         print(f"  bvh {label} work per depth (sample of {BOUND_SAMPLE} rays of {n_bvh}): "
               + "; ".join(f"{w[1]:.1f} boxes, {w[2]:.1f} triangles, "

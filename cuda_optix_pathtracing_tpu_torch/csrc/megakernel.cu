@@ -1,39 +1,51 @@
-// Fused path-tracing megakernel for Hopper (sm_90a), brute-force and BVH
-// modes.
+// Path-tracing kernels for Hopper (sm_90a): the fused whole-path kernel in
+// brute-force and BVH modes, and the single-bounce kernel of the
+// depth-sorted wavefront.
 //
 // Replaces the TPU kernel cuda_optix_pathtracing_tpu/models/megakernel_pallas.py
-// _pt_kernel (depth0=None, hash sampler), launched by trace_paths_fused
-// through pl.pallas_call: pt_fused_bruteforce <- use_bvh=False (the call
-// at megakernel_pallas.py:1574), pt_fused_bvh <- use_bvh=True (:1552,
-// tile_traverse "attrs" and "any" inside). One kernel template serves
-// both; its geometry policy (BruteGeo, BvhGeo below) answers the closest
-// hit and the shadow query. It computes the estimator of
-// the plain PyTorch integrator (models/megakernel.py trace_paths, the
-// XLA integrator's twin): Moller-Trumbore closest hit over all triangles,
-// material fetch, Oren-Nayar multiscatter / Lambert / GGX dielectric
-// (reflection, transmission, anisotropy, delta) / GGX conductor with the
-// Kulla-Conty E/Eavg polynomials, NEE to point / spot / area lights with a
-// shadow any-hit and power-heuristic MIS, emitter-hit MIS through the
-// previous bounce's pdf, Russian roulette from rr_start_depth and the
-// constant environment on a miss. Random numbers are pcg4d keyed
-// (px, py, sample ^ seed, depth * 24 + dim), bit-identical to ops/rng.py.
+// _pt_kernel, launched through pl.pallas_call:
+// - pt_fused_bruteforce <- trace_paths_fused, use_bvh=False (the call at
+//   megakernel_pallas.py:1574); pt_fused_bvh <- use_bvh=True (:1552,
+//   tile_traverse "attrs" and "any" inside). One kernel template,
+//   pt_fused_kernel<Geo, Smp>, serves both: its geometry policy (BruteGeo,
+//   BvhGeo) answers the closest hit and the shadow query, its sampler
+//   policy (HashRng; HaltonRng for sampler="halton", halton_1d:309) the
+//   random numbers.
+// - pt_bounce_bvh <- trace_paths_fused_sorted, single-depth mode (depth0,
+//   the call at :1725): one bounce per launch over a path state in
+//   structure-of-arrays planes, so the host can re-sort paths between
+//   depths.
+// Both run the same bounce() below. It computes the estimator of the plain
+// PyTorch integrator (models/megakernel.py bounce_step, the XLA
+// integrator's twin): Moller-Trumbore closest hit, material fetch,
+// Oren-Nayar multiscatter / Lambert / GGX dielectric (reflection,
+// transmission, anisotropy, delta) / GGX conductor with the Kulla-Conty
+// E/Eavg polynomials, NEE to point / spot / area lights with a shadow
+// any-hit and power-heuristic MIS, emitter-hit MIS through the previous
+// bounce's pdf, Russian roulette from rr_start_depth and the constant
+// environment on a miss. Random numbers are bit-identical to ops/rng.py:
+// pcg4d keyed (px, py, sample ^ seed, depth * 24 + dim), or Owen-scrambled
+// Halton for the dimensions below qmc_dims.
 //
-// What bounds it on the card (brute force): arithmetic. A path reads 36 bytes and
-// writes 12, and does ~(T * 90 + 800) flops per bounce (two triangle
-// sweeps and the shading), ~22 kflop for the Cornell box at depth 5: the
-// FP32 pipes, not memory, set the floor. Divergence (paths end at
-// different depths, materials branch) and register pressure (the whole
-// bounce state lives in registers) are what keep it above that floor.
+// What bounds the whole-path kernel on the card (brute force):
+// arithmetic. A path reads 36 bytes and writes 12, and does ~(T * 90 +
+// 800) flops per bounce (two triangle sweeps and the shading), ~22 kflop
+// for the Cornell box at depth 5: the FP32 pipes, not memory, set the
+// floor. Divergence (paths end at different depths, materials branch) and
+// register pressure (the whole bounce state lives in registers) are what
+// keep it above that floor. The Halton sampler adds integer work at depth
+// 0 only (qmc_dims = 12 < 24 dims per bounce): ~70 digit steps per path.
 //
 // Design: one thread per path, the whole depth loop in registers, as the
 // reference CUDA renderer's megakernel does. The triangle, material,
 // light and emissive tables are staged once per block into dynamic shared
 // memory, where every thread of a warp reads the same row (a broadcast).
-// The E/Eavg polynomial coefficients travel in the same table. A finished path leaves
-// the loop at once instead of running masked bounces, and a shadow ray is
-// traced only when its contribution is non-zero. The TPU kernel's lane
-// tiles, SMEM scalar streaming and second "fetch" sweep are not carried
-// over; the winner's barycentrics are kept during the sweep instead.
+// The E/Eavg polynomial coefficients travel in the same table. A finished
+// path leaves the loop at once instead of running masked bounces, and a
+// shadow ray is traced only when its contribution is non-zero. The TPU
+// kernel's lane tiles, SMEM scalar streaming and second "fetch" sweep are
+// not carried over; the winner's barycentrics are kept during the sweep
+// instead.
 //
 // BVH mode: the closest hit and the shadow ray walk the packed 8-wide BVH
 // per thread (bvh_trace in bvh.cuh); nodes and triangles stay in global
@@ -44,6 +56,14 @@
 // sweep. Still bound by arithmetic at the data's own work (node pops and
 // leaf tests per bounce), held back by divergence: paths of a warp
 // decohere after the first bounce and walk different subtrees.
+//
+// The single-bounce kernel answers that divergence the wavefront way: the
+// host sorts the paths by direction octant and origin Morton code before
+// every depth, so a warp's paths start near each other and head the same
+// way. Per launch it reads 20 planes of 4 bytes and writes 17 per live
+// path (148 B), against ~1.7 kflop of traversal and shading per bounce:
+// bytes bound it at depth 0 on the mesh Cornell box. A dead path returns
+// at once and leaves its planes untouched.
 #include "bvh.cuh"
 
 #define INV_PI_F 0.318309886183790671538f
@@ -102,12 +122,91 @@ __device__ __forceinline__ float u01(uint32_t u) {
   return (float)(u >> 8) * 5.9604645e-08f;
 }
 
-struct Rng {
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t seed) {
+  const uint32_t state = seed * 747796405u + 2891336453u;
+  const uint32_t word = ((state >> ((state >> 28u) + 4u)) ^ state) * 277803737u;
+  return (word >> 22u) ^ word;
+}
+
+// Owen-scrambled Halton (ops/rng.py halton_owen_sample): dimension dim uses
+// base kPrimes[dim % 32], scrambled per pixel by pcg4d(px, py, dim, seed).
+// Base 2 is the Laine-Karras permutation of the index, bit-reversed; an
+// odd base permutes digit k to (digit + h) % base, h a hash of the digit
+// prefix. The digit weight starts at and advances by float32(1 / base)
+// (kInvPrimes, rounded from double as the plain version's constant is),
+// and the accumulate rounds the product and the sum apart, never
+// contracted into an FMA, so the value is bit-equal to the plain version.
+__constant__ uint32_t kPrimes[32] = {2,  3,  5,  7,  11, 13, 17, 19, 23, 29, 31,
+                                     37, 41, 43, 47, 53, 59, 61, 67, 71, 73, 79,
+                                     83, 89, 97, 101, 103, 107, 109, 113, 127, 131};
+#define INV(p) (float)(1.0 / (p))
+__constant__ float kInvPrimes[32] = {
+    INV(2),  INV(3),  INV(5),  INV(7),   INV(11),  INV(13),  INV(17),  INV(19),
+    INV(23), INV(29), INV(31), INV(37),  INV(41),  INV(43),  INV(47),  INV(53),
+    INV(59), INV(61), INV(67), INV(71),  INV(73),  INV(79),  INV(83),  INV(89),
+    INV(97), INV(101), INV(103), INV(107), INV(109), INV(113), INV(127), INV(131)};
+#undef INV
+
+__device__ __noinline__ float halton_owen(uint32_t px, uint32_t py, uint32_t sample,
+                                          uint32_t dim, uint32_t seed) {
+  const uint32_t pixel_seed = pcg4d(px, py, dim, seed).x;
+  const uint32_t base = kPrimes[dim % 32u];
+  if (base == 2u) {
+    uint32_t x = sample + pixel_seed;
+    x ^= x * 0x6C50B47Cu;
+    x ^= x * 0xB82F1E52u;
+    x ^= x * 0xC7AFE638u;
+    x ^= x * 0x8D22F6E6u;
+    return u01(__brev(x));
+  }
+  const int n_digits = base == 3u ? 20 : base == 5u ? 14 : base == 7u ? 12
+                     : base == 11u ? 10 : base == 13u ? 9 : 8;
+  const float inv_base = kInvPrimes[dim % 32u];
+  uint32_t idx = sample, prefix = 0u;
+  float value = 0.0f, inv_mult = inv_base;
+  for (int k = 0; k < n_digits; ++k) {
+    const uint32_t quot = idx / base;
+    const uint32_t digit = idx - quot * base;
+    const uint32_t h = pcg_hash(prefix * 0x9E3779B9u ^ pixel_seed);
+    const uint32_t sdigit = (digit + h) % base;
+    value = __fadd_rn(value, __fmul_rn(__uint2float_rn(sdigit), inv_mult));
+    prefix = prefix * base + digit + 1u;
+    idx = quot;
+    inv_mult = __fmul_rn(inv_mult, inv_base);
+  }
+  return fminf(value, (float)(1.0 - 1e-7));
+}
+
+// The samplers, keyed (px, py, sample, dim) with the seed (ops/rng.py
+// Sampler). The hash keys pcg4d on sample ^ seed; Halton serves the
+// dimensions below qmc_dims (a 2-D request needs both) and the hash the
+// rest.
+struct HashRng {
   uint32_t px, py, ss;
+  __device__ HashRng(uint32_t px_, uint32_t py_, uint32_t sample, uint32_t seed, int)
+      : px(px_), py(py_), ss(sample ^ seed) {}
   __device__ float u1(uint32_t dim) const { return u01(pcg4d(px, py, ss, dim).x); }
   __device__ float2 u2(uint32_t dim) const {
     const uint4 h = pcg4d(px, py, ss, dim);
     return make_float2(u01(h.x), u01(h.y));
+  }
+};
+
+struct HaltonRng {
+  HashRng hash;
+  uint32_t sample, seed, qmc_dims;
+  __device__ HaltonRng(uint32_t px_, uint32_t py_, uint32_t sample_, uint32_t seed_,
+                       int qmc_dims_)
+      : hash(px_, py_, sample_, seed_, 0), sample(sample_), seed(seed_),
+        qmc_dims((uint32_t)qmc_dims_) {}
+  __device__ float u1(uint32_t dim) const {
+    return dim < qmc_dims ? halton_owen(hash.px, hash.py, sample, dim, seed) : hash.u1(dim);
+  }
+  __device__ float2 u2(uint32_t dim) const {
+    if (dim + 1u < qmc_dims)
+      return make_float2(halton_owen(hash.px, hash.py, sample, dim, seed),
+                         halton_owen(hash.px, hash.py, sample, dim + 1u, seed));
+    return hash.u2(dim);
   }
 };
 
@@ -704,183 +803,314 @@ struct BvhGeo {
 };
 
 // ---------------------------------------------------------------------------
-// the kernel
+// one bounce, shared by the whole-path kernel and the single-bounce kernel
 // ---------------------------------------------------------------------------
 
-template <class Geo>
-__global__ void __launch_bounds__(kBlock)
-    pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
-                    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                    const uint32_t* __restrict__ sample_seed,
-                    const float* __restrict__ tables, int n, int n_mats, int n_lights,
-                    int n_em, int max_depth, int rr_start_depth, float* __restrict__ out) {
-  // shared layout: geometry rows (brute force only) | mat (M,24) |
-  // light (L,13) | emissive (K,15) | env (3) | E/Eavg coefficients (56)
-  extern __shared__ float smem[];
-  const int n_geo = geo.smem_floats();
-  const int n_floats =
-      n_geo + MAT_W * n_mats + LIGHT_W * n_lights + EM_W * n_em + 3 + EPOLY_N;
-  block_copy(smem, tables, n_floats);
-  __syncthreads();
-  Geo g = geo;
-  g.bind(smem);
-  const float* s_mat = smem + n_geo;
-  const float* s_light = s_mat + MAT_W * n_mats;
-  const float* s_em = s_light + LIGHT_W * n_lights;
-  const float3 env = row3(s_em + EM_W * n_em);
-  const float* s_ep = s_em + EM_W * n_em + 3;
+// A path's state between bounces (models/megakernel.py PathState).
+struct PathRegs {
+  float3 o, d, beta, radiance;
+  float eta_scale, prev_pdf;
+  bool inside, prev_delta;
+};
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const Rng rng{px[r], py[r], sample_seed[r]};
-  float3 o = load3(o_in, r), d = load3(d_in, r);
-  float3 beta = f3(1.f, 1.f, 1.f), radiance = f3(0.f, 0.f, 0.f);
-  bool inside = false, prev_delta = true;  // the camera counts as delta
-  float eta_scale = 1.0f, prev_pdf = 0.0f;
-  const float pmf = 1.0f / (float)n_lights;
+// The shading tables in shared memory: mat (M,24) | light (L,13) |
+// emissive (K,15) | env (3) | E/Eavg coefficients (56).
+struct Shade {
+  const float* mat;
+  const float* light;
+  const float* em;
+  const float* ep;
+  float3 env;
+  int n_lights, n_em;
+  __device__ Shade(const float* s, int n_mats, int n_lights_, int n_em_)
+      : mat(s), light(s + MAT_W * n_mats), em(light + LIGHT_W * n_lights_),
+        ep(em + EM_W * n_em_ + 3), env(row3(em + EM_W * n_em_)), n_lights(n_lights_),
+        n_em(n_em_) {}
+};
 
-  for (int depth = 0; depth < max_depth; ++depth) {
-    const uint32_t dim = (uint32_t)depth * DIMS_PER_BOUNCE;
-    // ---- closest hit, with the winner's (u, v) ----
-    float tb, ub, vb;
-    int ib;
-    if (!g.closest(o, d, tb, ub, vb, ib)) {  // miss: environment, path ends
-      radiance = radiance + mul3(beta, env);
-      break;
+__host__ __device__ inline int shade_floats(int n_mats, int n_lights, int n_em) {
+  return MAT_W * n_mats + LIGHT_W * n_lights + EM_W * n_em + 3 + EPOLY_N;
+}
+
+// One bounce of a live path at `depth` (models/megakernel.py bounce_step
+// for one ray): closest hit, emitter MIS, NEE, BSDF sample, roulette.
+// Returns whether the path lives on. A path that ends here (miss, pdf <=
+// 0, roulette) keeps o, d, beta, prev_pdf and prev_delta as they were;
+// radiance always, and inside and eta_scale after a refraction, are
+// updated, as in bounce_step.
+template <class Geo, class Smp>
+__device__ __forceinline__ bool bounce(const Geo& g, const Smp& rng, const Shade& sh,
+                                       int depth, int rr_start_depth, PathRegs& s) {
+  const uint32_t dim = (uint32_t)depth * DIMS_PER_BOUNCE;
+  const float pmf = 1.0f / (float)sh.n_lights;
+  const float3 d = s.d;
+  // ---- closest hit, with the winner's (u, v) ----
+  float tb, ub, vb;
+  int ib;
+  if (!g.closest(s.o, d, tb, ub, vb, ib)) {  // miss: environment, path ends
+    s.radiance = s.radiance + mul3(s.beta, sh.env);
+    return false;
+  }
+  float3 p0, e0, e1;
+  g.triangle(ib, p0, e0, e1);
+  const float3 pos = p0 + ub * e0 + vb * e1;
+  float3 ng = normalize3(cross3(e1, e0));
+  if (dot3(d, ng) > 0.0f) ng = -ng;
+  const float wb = 1.0f - ub - vb;
+  const float3 p1 = p0 + e0, p2 = p0 + e1;
+  const float3 err =
+      f3(GAMMA7 * (fabsf(ub * p0.x) + fabsf(vb * p1.x) + fabsf(wb * p2.x)),
+         GAMMA7 * (fabsf(ub * p0.y) + fabsf(vb * p1.y) + fabsf(wb * p2.y)),
+         GAMMA7 * (fabsf(ub * p0.z) + fabsf(vb * p1.z) + fabsf(wb * p2.z)));
+  const float3 wo = -d;
+  const Mat m = load_mat(sh.mat + MAT_W * g.material(ib));
+
+  if (sh.n_em > 0) {  // directly-hit emitter, MIS against area NEE
+    const float cos_l = fabsf(dot3(d, ng));
+    const float pdf_hit = sqr(tb) / fmaxf(cos_l * sh.em[14], 1e-12f) * pmf;
+    const float w_em =
+        s.prev_delta ? 1.0f
+                     : sqr(s.prev_pdf) / fmaxf(sqr(s.prev_pdf) + sqr(pdf_hit), 1e-24f);
+    s.radiance = s.radiance + mul3(s.beta, m.emission) * w_em;
+  }
+
+  // ---- NEE: uniform light pick ----
+  {
+    const float ul = rng.u1(dim + 2u);
+    const int li = min((int)(ul * (float)sh.n_lights), sh.n_lights - 1);
+    const float2 ulu = rng.u2(dim + 3u);
+    const float* lrow = sh.light + LIGHT_W * li;
+    const bool is_area = (int)lrow[0] == AREA;
+    float3 ldir, le;
+    float ldist, lpdf;
+    if (is_area) {
+      sample_area(sh.em, sh.n_em, pos, ulu.x, ulu.y, ldir, ldist, lpdf, le);
+      ldist *= 0.999f;
+    } else {
+      sample_point_spot(lrow, pos, ng, ulu.x, ulu.y, ldir, ldist, lpdf, le);
     }
-    float3 p0, e0, e1;
-    g.triangle(ib, p0, e0, e1);
-    const float3 pos = p0 + ub * e0 + vb * e1;
-    float3 ng = normalize3(cross3(e1, e0));
-    if (dot3(d, ng) > 0.0f) ng = -ng;
-    const float wb = 1.0f - ub - vb;
-    const float3 p1 = p0 + e0, p2 = p0 + e1;
-    const float3 err =
-        f3(GAMMA7 * (fabsf(ub * p0.x) + fabsf(vb * p1.x) + fabsf(wb * p2.x)),
-           GAMMA7 * (fabsf(ub * p0.y) + fabsf(vb * p1.y) + fabsf(wb * p2.y)),
-           GAMMA7 * (fabsf(ub * p0.z) + fabsf(vb * p1.z) + fabsf(wb * p2.z)));
-    const float3 wo = -d;
-    const Mat m = load_mat(s_mat + MAT_W * g.material(ib));
-
-    if (n_em > 0) {  // directly-hit emitter, MIS against area NEE
-      const float cos_l = fabsf(dot3(d, ng));
-      const float pdf_hit = sqr(tb) / fmaxf(cos_l * s_em[14], 1e-12f) * pmf;
-      const float w_em =
-          prev_delta ? 1.0f
-                     : sqr(prev_pdf) / fmaxf(sqr(prev_pdf) + sqr(pdf_hit), 1e-24f);
-      radiance = radiance + mul3(beta, m.emission) * w_em;
-    }
-
-    // ---- NEE: uniform light pick ----
-    {
-      const float ul = rng.u1(dim + 2u);
-      const int li = min((int)(ul * (float)n_lights), n_lights - 1);
-      const float2 ulu = rng.u2(dim + 3u);
-      const float* lrow = s_light + LIGHT_W * li;
-      const bool is_area = (int)lrow[0] == AREA;
-      float3 ldir, le;
-      float ldist, lpdf;
-      if (is_area) {
-        sample_area(s_em, n_em, pos, ulu.x, ulu.y, ldir, ldist, lpdf, le);
-        ldist *= 0.999f;
-      } else {
-        sample_point_spot(lrow, pos, ng, ulu.x, ulu.y, ldir, ldist, lpdf, le);
-      }
-      float3 f_l;
-      float pdf_l;
-      eval_bsdf(s_ep, m, wo, ldir, ng, inside, f_l, pdf_l);
-      if (lpdf > 0.0f && max3(f_l) > 0.0f) {
-        const float3 so = offset_ray_origin(pos, err, ng, ldir);
-        if (!g.occluded(so, ldir, ldist)) {
-          float scale;
-          if (is_area) {
-            const float pdf_tot = lpdf * pmf;
-            const float w = sqr(pdf_tot) / fmaxf(sqr(pdf_tot) + sqr(pdf_l), 1e-24f);
-            scale = w / fmaxf(pdf_tot, 1e-12f);
-            radiance = radiance + mul3(beta, mul3(le, f_l) * scale);
-          } else {
-            radiance = radiance + mul3(beta, div3(mul3(le, f_l), pmf));
-          }
+    float3 f_l;
+    float pdf_l;
+    eval_bsdf(sh.ep, m, wo, ldir, ng, s.inside, f_l, pdf_l);
+    if (lpdf > 0.0f && max3(f_l) > 0.0f) {
+      const float3 so = offset_ray_origin(pos, err, ng, ldir);
+      if (!g.occluded(so, ldir, ldist)) {
+        if (is_area) {
+          const float pdf_tot = lpdf * pmf;
+          const float w = sqr(pdf_tot) / fmaxf(sqr(pdf_tot) + sqr(pdf_l), 1e-24f);
+          const float scale = w / fmaxf(pdf_tot, 1e-12f);
+          s.radiance = s.radiance + mul3(s.beta, mul3(le, f_l) * scale);
+        } else {
+          s.radiance = s.radiance + mul3(s.beta, div3(mul3(le, f_l), pmf));
         }
       }
     }
-
-    // ---- bounce ----
-    const float2 ub2 = rng.u2(dim + 5u);
-    const float uc = rng.u1(dim + 7u);
-    const BsdfSample bs = sample_bsdf(s_ep, m, wo, ng, ub2.x, ub2.y, uc, inside);
-    if (!(bs.pdf > 0.0f)) break;
-    beta = mul3(beta, div3(bs.f, fmaxf(bs.pdf, 1e-12f)));
-    const float3 o_new = offset_ray_origin(pos, err, ng, bs.wi);
-    if (bs.refract) {
-      inside = !inside;
-      eta_scale *= sqr(bs.eta);
-    }
-    // Russian roulette on beta * prod(eta^2) from rr_start_depth on
-    const float rr_beta = max3(beta) * eta_scale;
-    const float u_rr = rng.u1(dim + 8u);
-    const float q = fmaxf(0.0f, 1.0f - rr_beta);
-    if (rr_beta < 1.0f && depth >= rr_start_depth) {
-      if (u_rr < q) break;
-      beta = beta * (1.0f / fmaxf(1.0f - q, 1e-6f));
-    }
-    o = o_new;
-    d = bs.wi;
-    prev_pdf = bs.pdf;
-    prev_delta = bs.delta;
   }
-  store3(out, r, radiance);
+
+  // ---- bounce ----
+  const float2 ub2 = rng.u2(dim + 5u);
+  const float uc = rng.u1(dim + 7u);
+  const BsdfSample bs = sample_bsdf(sh.ep, m, wo, ng, ub2.x, ub2.y, uc, s.inside);
+  if (!(bs.pdf > 0.0f)) return false;
+  float3 beta = mul3(s.beta, div3(bs.f, fmaxf(bs.pdf, 1e-12f)));
+  const float3 o_new = offset_ray_origin(pos, err, ng, bs.wi);
+  if (bs.refract) {
+    s.inside = !s.inside;
+    s.eta_scale *= sqr(bs.eta);
+  }
+  // Russian roulette on beta * prod(eta^2) from rr_start_depth on
+  const float rr_beta = max3(beta) * s.eta_scale;
+  if (rr_beta < 1.0f && depth >= rr_start_depth) {
+    const float q = fmaxf(0.0f, 1.0f - rr_beta);
+    if (rng.u1(dim + 8u) < q) return false;
+    beta = beta * (1.0f / fmaxf(1.0f - q, 1e-6f));
+  }
+  s.o = o_new;
+  s.d = bs.wi;
+  s.beta = beta;
+  s.prev_pdf = bs.pdf;
+  s.prev_delta = bs.delta;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// the kernels
+// ---------------------------------------------------------------------------
+
+// The whole path loop per thread (TPU kernel: _pt_kernel, depth0=None).
+template <class Geo, class Smp>
+__global__ void __launch_bounds__(kBlock)
+    pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
+                    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                    const uint32_t* __restrict__ sample, const float* __restrict__ tables,
+                    int n, int n_mats, int n_lights, int n_em, int max_depth,
+                    int rr_start_depth, uint32_t seed, int qmc_dims,
+                    float* __restrict__ out) {
+  // shared layout: geometry rows (brute force only) | shading tables
+  extern __shared__ float smem[];
+  const int n_geo = geo.smem_floats();
+  block_copy(smem, tables, n_geo + shade_floats(n_mats, n_lights, n_em));
+  __syncthreads();
+  Geo g = geo;
+  g.bind(smem);
+  const Shade sh(smem + n_geo, n_mats, n_lights, n_em);
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const Smp rng(px[r], py[r], sample[r], seed, qmc_dims);
+  // the camera counts as delta
+  PathRegs s{load3(o_in, r), load3(d_in, r), f3(1.f, 1.f, 1.f), f3(0.f, 0.f, 0.f),
+             1.0f, 0.0f, false, true};
+  for (int depth = 0; depth < max_depth; ++depth)
+    if (!bounce(g, rng, sh, depth, rr_start_depth, s)) break;
+  store3(out, r, s.radiance);
+}
+
+// One bounce per launch over a path state in structure-of-arrays planes
+// (TPU kernel: _pt_kernel, single-depth mode, trace_paths_fused_sorted).
+// st is (P, n) 32-bit planes, updated in place (each thread owns its
+// column): 0-2 o, 3-5 d, 6-8 beta, 9-11 radiance (f32); 12 alive, 13
+// inside (i32); 14 eta_scale, 15 prev_pdf (f32); 16 prev_delta (i32); 17
+// px, 18 py, 19 sample (u32). A dead path's planes are left as they were.
+template <class Smp>
+__global__ void __launch_bounds__(kBlock)
+    pt_bounce_kernel(BvhGeo g, float* __restrict__ st, const float* __restrict__ tables,
+                     int n, int n_mats, int n_lights, int n_em, int depth,
+                     int rr_start_depth, uint32_t seed, int qmc_dims) {
+  extern __shared__ float smem[];
+  block_copy(smem, tables, shade_floats(n_mats, n_lights, n_em));
+  __syncthreads();
+  const Shade sh(smem, n_mats, n_lights, n_em);
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  int* __restrict__ sti = reinterpret_cast<int*>(st);
+  const size_t N = (size_t)n;
+  if (!sti[12 * N + r]) return;
+  const uint32_t* stu = reinterpret_cast<const uint32_t*>(st);
+  const Smp rng(stu[17 * N + r], stu[18 * N + r], stu[19 * N + r], seed, qmc_dims);
+  auto ld3 = [&](int p) { return f3(st[p * N + r], st[(p + 1) * N + r], st[(p + 2) * N + r]); };
+  PathRegs s{ld3(0), ld3(3), ld3(6), ld3(9), st[14 * N + r], st[15 * N + r],
+             sti[13 * N + r] != 0, sti[16 * N + r] != 0};
+  const bool alive = bounce(g, rng, sh, depth, rr_start_depth, s);
+  auto st3 = [&](int p, float3 v) {
+    st[p * N + r] = v.x;
+    st[(p + 1) * N + r] = v.y;
+    st[(p + 2) * N + r] = v.z;
+  };
+  st3(0, s.o);
+  st3(3, s.d);
+  st3(6, s.beta);
+  st3(9, s.radiance);
+  sti[12 * N + r] = alive;
+  sti[13 * N + r] = s.inside;
+  st[14 * N + r] = s.eta_scale;
+  st[15 * N + r] = s.prev_pdf;
+  sti[16 * N + r] = s.prev_delta;
+}
+
+template <class K>
+int set_smem(K kernel, size_t smem) {
+  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  return 0;
+}
+
+template <class Geo, class Smp>
+int launch(const Geo& geo, const float* o, const float* d,
+           const uint32_t* px, const uint32_t* py, const uint32_t* sample,
+           const float* tables, int n, int n_mats, int n_lights, int n_em,
+           int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims, float* out,
+           void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)(geo.smem_floats() + shade_floats(n_mats, n_lights, n_em));
+  if (const int err = set_smem(pt_fused_kernel<Geo, Smp>, smem)) return err;
+  const int grid = (n + kBlock - 1) / kBlock;
+  pt_fused_kernel<Geo, Smp><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      geo, o, d, px, py, sample, tables, n, n_mats, n_lights, n_em, max_depth,
+      rr_start_depth, seed, qmc_dims, out);
+  return (int)cudaGetLastError();
 }
 
 template <class Geo>
-int launch(const Geo& geo, const float* o, const float* d,
-           const uint32_t* px, const uint32_t* py, const uint32_t* sample_seed,
-           const float* tables, int n, int n_mats, int n_lights, int n_em,
-           int max_depth, int rr_start_depth, float* out, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)(geo.smem_floats() + MAT_W * n_mats +
-                                               LIGHT_W * n_lights + EM_W * n_em + 3 +
-                                               EPOLY_N);
-  if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pt_fused_kernel<Geo>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+int launch_sampler(int sampler, const Geo& geo, const float* o, const float* d,
+                   const uint32_t* px, const uint32_t* py, const uint32_t* sample,
+                   const float* tables, int n, int n_mats, int n_lights, int n_em,
+                   int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims,
+                   float* out, void* stream) {
+  if (sampler == 0)
+    return launch<Geo, HashRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
+                                n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
+                                stream);
+  if (sampler == 1)
+    return launch<Geo, HaltonRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
+                                  n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class Smp>
+int launch_bounce(const BvhGeo& geo, float* st, const float* shade, int n, int n_mats,
+                  int n_lights, int n_em, int depth, int rr_start_depth, uint32_t seed,
+                  int qmc_dims, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)shade_floats(n_mats, n_lights, n_em);
+  if (const int err = set_smem(pt_bounce_kernel<Smp>, smem)) return err;
   const int grid = (n + kBlock - 1) / kBlock;
-  pt_fused_kernel<Geo><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      geo, o, d, px, py, sample_seed, tables, n, n_mats, n_lights, n_em, max_depth,
-      rr_start_depth, out);
+  pt_bounce_kernel<Smp><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      geo, st, shade, n, n_mats, n_lights, n_em, depth, rr_start_depth, seed, qmc_dims);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain-C entry points (ctypes). Device pointers: o, d (n,3); px, py,
-// sample_seed (n,) u32; out (n,3). Return the CUDA error code (0 =
-// launched).
+// Plain-C entry points (ctypes). Device pointers; return the CUDA error
+// code (0 = launched). sampler: 0 hash, 1 Halton (qmc_dims leading
+// dimensions); seed is the sampler's seed.
 //
-// Brute force: tables = tri (T,9) | material id (T) | shading tables, as
-// packed by models/megakernel_cuda.py (pack_tables).
+// The whole-path kernel: o, d (n,3); px, py, sample (n,) u32; out (n,3).
+// Brute force: tables = tri (T,9) [v0|e0|e1] | material id (T) | shading
+// tables, as packed by models/megakernel_cuda.py (pack_tables).
 extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_t* px,
-                                   const uint32_t* py, const uint32_t* sample_seed,
+                                   const uint32_t* py, const uint32_t* sample,
                                    const float* tables, int n, int n_tris, int n_mats,
                                    int n_lights, int n_em, int max_depth,
-                                   int rr_start_depth, float* out, void* stream) {
+                                   int rr_start_depth, int sampler, uint32_t seed,
+                                   int qmc_dims, float* out, void* stream) {
   const BruteGeo geo{n_tris, nullptr, nullptr};
-  return launch(geo, o, d, px, py, sample_seed, tables, n, n_mats, n_lights,
-                n_em, max_depth, rr_start_depth, out, stream);
+  return launch_sampler(sampler, geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
+                        n_em, max_depth, rr_start_depth, seed, qmc_dims, out, stream);
 }
 
 // BVH: shade = the shading tables (pack_shade_tables); box (M,128) f32,
 // meta (M*16) i32; v0, e0, e1 (Tp,3) and tri_mat (Tp,) i32 in packed-BVH
 // order.
 extern "C" int pt_fused_bvh(const float* o, const float* d, const uint32_t* px,
-                            const uint32_t* py, const uint32_t* sample_seed,
+                            const uint32_t* py, const uint32_t* sample,
                             const float* shade, const float* box, const int* meta,
                             const float* v0, const float* e0, const float* e1,
                             const int* tri_mat, int n, int n_mats, int n_lights, int n_em,
-                            int max_depth, int rr_start_depth, float* out, void* stream) {
+                            int max_depth, int rr_start_depth, int sampler, uint32_t seed,
+                            int qmc_dims, float* out, void* stream) {
   const BvhGeo geo{BvhTables{box, meta, v0, e0, e1}, tri_mat};
-  return launch(geo, o, d, px, py, sample_seed, shade, n, n_mats, n_lights, n_em,
-                max_depth, rr_start_depth, out, stream);
+  return launch_sampler(sampler, geo, o, d, px, py, sample, shade, n, n_mats, n_lights,
+                        n_em, max_depth, rr_start_depth, seed, qmc_dims, out, stream);
+}
+
+// One bounce at `depth` over the (20, n) path-state planes st (layout at
+// pt_bounce_kernel), in place; the BVH tables as for pt_fused_bvh.
+extern "C" int pt_bounce_bvh(float* st, const float* shade, const float* box,
+                             const int* meta, const float* v0, const float* e0,
+                             const float* e1, const int* tri_mat, int n, int n_mats,
+                             int n_lights, int n_em, int depth, int rr_start_depth,
+                             int sampler, uint32_t seed, int qmc_dims, void* stream) {
+  const BvhGeo geo{BvhTables{box, meta, v0, e0, e1}, tri_mat};
+  if (sampler == 0)
+    return launch_bounce<HashRng>(geo, st, shade, n, n_mats, n_lights, n_em, depth,
+                                  rr_start_depth, seed, qmc_dims, stream);
+  if (sampler == 1)
+    return launch_bounce<HaltonRng>(geo, st, shade, n, n_mats, n_lights, n_em, depth,
+                                    rr_start_depth, seed, qmc_dims, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -23,6 +23,11 @@ BVH scenes render their camera rays in Morton pixel order when the image
 is a power-of-two square (``pixel_order``), so neighbouring rays start in
 neighbouring pixels.
 
+Camera samples: a box filter (uniform jitter in the pixel) or the
+Mitchell filter, importance-sampled through its tabulated CDF
+(``ops/filters.py``), each sample weighted by the filter's sign. Random
+numbers: the hash sampler or Owen-scrambled Halton (``ops/rng.py``).
+
 ``trace_paths`` with ``backend="torch"`` is the plain version of the fused
 kernel and of the intersection kernels.
 """
@@ -42,6 +47,7 @@ from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
 from ..ops.camera import generate_rays, pixel_centers
 from ..ops.envmap import eval_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
+from ..ops.filters import filter_sampler, sample_filter
 from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_raw
 from ..ops.lights import AREA, eval_light, sample_area_light, sample_light
 from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
@@ -54,7 +60,7 @@ from ..scene.types import Scene, scene_to
 class MegakernelConfig:
     max_depth: int = 5  # bounce budget
     rr_start_depth: int = 2  # roulette active from this depth on
-    sampler: str = "hash"  # "hash" ("halton": slice 4)
+    sampler: str = "hash"  # "hash" | "halton" (Owen-scrambled, dims < 12)
     seed: int = 0
     tri_chunk: int = 32  # triangles per step of the plain sweep
     env_nee: bool = False  # envmap NEE (slice 5); outside the fused set
@@ -64,7 +70,9 @@ class MegakernelConfig:
     # plain version); cuda = the kernels, raising for CPU tensors
     features: MatFeatures = ALL_FEATURES  # material lobes the plain
     # evaluators keep (bsdf.mat_features_from_table)
-    pixel_filter: str = "box"  # "box" ("mitchell": slice 4)
+    pixel_filter: str = "box"  # "box" | "mitchell": camera-sample filter.
+    # mitchell = filter importance sampling through the tabulated
+    # Mitchell-Netravali filter (radius 2), each sample weighted by sign(f)
     light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5)
     fused: str = "auto"  # "auto" | "on" | "off": the fused CUDA path-loop
     # kernel; auto = on for CUDA scenes inside its feature set
@@ -77,14 +85,10 @@ class MegakernelConfig:
 
 
 def _validate(cfg: MegakernelConfig) -> None:
-    if cfg.sampler == "halton":
-        raise NotImplementedError("the Halton sampler is not ported yet (slice 4)")
-    if cfg.sampler != "hash":
+    if cfg.sampler not in ("hash", "halton"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if cfg.pixel_filter != "box":
-        raise NotImplementedError(
-            f"pixel_filter={cfg.pixel_filter!r} is not ported yet (slice 4)"
-        )
+    if cfg.pixel_filter not in ("box", "mitchell"):
+        raise ValueError(f"unknown pixel_filter {cfg.pixel_filter!r}")
     if cfg.light_strategy == "tree":
         raise NotImplementedError("the light tree is not ported yet (slice 5)")
     if cfg.light_strategy not in ("auto", "uniform"):
@@ -363,12 +367,14 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
     )
 
 
-def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, device="cuda"):
+def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, device="cuda",
+                qmc_dims: int = R.QMC_DIMS):
     """Trace one sample per ray for rays (o, d) → radiance (N,3).
 
     ``px, py`` are int64 pixel coordinates (RNG keys in [0, 2^32)),
     ``sample`` the global sample index (int or (N,) int64 tensor). Every
-    input moves to ``device``.
+    input moves to ``device``. ``qmc_dims``: the Halton sampler's leading
+    dimensions.
     """
     _validate(cfg)
     if cfg.env_nee:
@@ -378,7 +384,7 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
     px, py, o, d = (x.to(dev) for x in (px, py, o, d))
     if torch.is_tensor(sample):
         sample = sample.to(dev)
-    sampler = R.Sampler(cfg.sampler, cfg.seed)
+    sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
     state = init_path_state(o.shape[0], o, d)
     for depth in range(cfg.max_depth):
         state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
@@ -410,7 +416,12 @@ def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, samp
     py = pix[:, 1].to(torch.int64)
     sampler = R.Sampler(cfg.sampler, cfg.seed)
     u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
-    p_film = pix + torch.stack([u1, u2], dim=-1)
+    fw = None
+    if cfg.pixel_filter == "mitchell":
+        dx, dy, fw = sample_filter(filter_sampler(str(dev)), u1, u2)
+        p_film = pix + 0.5 + torch.stack([dx, dy], dim=-1)
+    else:
+        p_film = pix + torch.stack([u1, u2], dim=-1)
     o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
     if cfg.fused == "auto":
         cfg = resolve_fused(scene, cfg)
@@ -424,6 +435,8 @@ def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, samp
         )
     else:
         radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=dev)
+    if fw is not None:
+        radiance = radiance * fw[:, None]
     if morton:
         img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
         return img if nspp > 1 else img[0]

@@ -1,21 +1,27 @@
-"""Wrapper of the fused path-tracing kernel (``csrc/megakernel.cu``), the
+"""Wrappers of the path-tracing kernels (``csrc/megakernel.cu``), the
 counterpart of the reference ``models/megakernel_pallas.py``.
 
-``trace_paths_fused`` launches the kernel for CUDA tensors (one thread per
-path, the whole depth loop in registers, shading tables in shared memory)
-or raises; for CPU tensors it runs the kernel's plain version,
-``models/megakernel.trace_paths`` with the plain intersection sweep.
-``trace_paths_fused.launches`` counts kernel launches and nothing else.
-
-Two modes, one kernel template: a brute-force scene's triangles go to
-shared memory with the shading tables (``pt_fused_bruteforce``); a BVH
+``trace_paths_fused`` launches the fused kernel for CUDA tensors (one
+thread per path, the whole depth loop in registers, shading tables in
+shared memory) or raises; for CPU tensors it runs the kernel's plain
+version, ``models/megakernel.trace_paths`` with the plain intersection
+sweep. Two modes, one kernel template: a brute-force scene's triangles go
+to shared memory with the shading tables (``pt_fused_bruteforce``); a BVH
 scene's node tables and packed triangles stay in global memory and each
 thread walks the tree (``pt_fused_bvh``).
 
+``trace_paths_fused_sorted`` is the depth-sorted fused wavefront of BVH
+scenes: one launch of the single-bounce kernel (``pt_bounce_bvh``, through
+``bounce_fused``) per depth over the path state in structure-of-arrays
+planes, the paths re-sorted by ``ray_sort_key`` between depths. Like the
+reference, ``render()`` never takes it.
+
+``trace_paths_fused.launches`` and ``bounce_fused.launches`` count kernel
+launches and nothing else.
+
 Scope: Oren-Nayar, Lambert, GGX dielectric and conductor; point, spot and
-area lights with uniform selection; constant environment; hash sampler.
-The reference kernel's single-depth mode (``trace_paths_fused_sorted``) and
-its Halton variant are not ported yet.
+area lights with uniform selection; constant environment; the hash and
+the Owen-scrambled Halton samplers.
 """
 
 from __future__ import annotations
@@ -26,26 +32,34 @@ import functools
 import torch
 
 from ..ops import _cuda_build
+from ..ops import rng as R
 from ..ops.bvh import STACK_SIZE
 from ..ops.bvh_cuda import check_bvh_scene
 from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR
 from ..ops.lights import AREA, PORTED_LIGHT_TYPES
+from ..ops.raysort import ray_sort_key
 from ..ops.shade_tables import EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
 
 MAX_SMEM_BYTES = 227 * 1024  # one block's dynamic shared memory on Hopper
 
+SAMPLERS = {"hash": 0, "halton": 1}  # the kernels' sampler codes
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
+_SAMPLER_ARGS = [_I, _U, _I]  # sampler code, seed, qmc_dims
 
 
 @functools.cache
 def _lib():
     lib = _cuda_build.load("megakernel")
-    lib.pt_fused_bruteforce.argtypes = [_P] * 6 + [_I] * 7 + [_P] * 2
+    lib.pt_fused_bruteforce.argtypes = [_P] * 6 + [_I] * 7 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_fused_bruteforce.restype = _I
-    lib.pt_fused_bvh.argtypes = [_P] * 12 + [_I] * 6 + [_P] * 2
+    lib.pt_fused_bvh.argtypes = [_P] * 12 + [_I] * 6 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_fused_bvh.restype = _I
+    lib.pt_bounce_bvh.argtypes = [_P] * 8 + [_I] * 6 + _SAMPLER_ARGS + [_P]
+    lib.pt_bounce_bvh.restype = _I
     return lib
 
 
@@ -68,14 +82,14 @@ def table_bytes(scene: Scene) -> int:
 
 def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     """Can the fused kernel render (scene, cfg)? Counterpart of the
-    reference ``pallas_megakernel_supported`` without its Halton branch
-    (slice 4). The reference refuses BVH scenes whose node meta table
-    exceeds 255 KB, the TPU's SMEM budget for kernel inputs; here the node
-    tables stay in global memory, so only the traversal stack bounds the
-    tree (its depth)."""
-    if cfg.sampler != "hash" or cfg.env_nee:
+    reference ``pallas_megakernel_supported``: either sampler; the pixel
+    filter runs outside the kernel and is not checked. The reference
+    refuses BVH scenes whose node meta table exceeds 255 KB, the TPU's SMEM
+    budget for kernel inputs; here the node tables stay in global memory,
+    so only the traversal stack bounds the tree (its depth)."""
+    if cfg.sampler not in SAMPLERS or cfg.env_nee:
         return False
-    if cfg.light_strategy == "tree" or cfg.pixel_filter != "box":
+    if cfg.light_strategy == "tree":
         return False
     mtypes = set(scene.materials.mtype.cpu().tolist())
     if not mtypes <= {OREN_NAYAR, GGX_DIELECTRIC, GGX_CONDUCTOR, LAMBERT}:
@@ -114,25 +128,36 @@ def _u32_as_i32(x, n, device):
     return torch.broadcast_to(x, (n,)).to(torch.int32).contiguous()
 
 
+def _sampler_code(sampler: str, qmc_dims: int) -> int:
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if not 0 <= qmc_dims < 2**31:
+        raise ValueError(f"qmc_dims must be >= 0, got {qmc_dims}")
+    return SAMPLERS[sampler]
+
+
+def _plain_cfg(max_depth, rr_start_depth, seed, sampler):
+    from .megakernel import MegakernelConfig
+
+    return MegakernelConfig(
+        max_depth=max_depth, rr_start_depth=rr_start_depth, seed=seed, sampler=sampler,
+        backend="torch", fused="off",
+    )
+
+
 def trace_paths_fused(
     scene: Scene, px, py, sample, o, d,
     max_depth: int = 5, rr_start_depth: int = 2, seed: int = 0,
-    sampler: str = "hash",
+    sampler: str = "hash", qmc_dims: int = R.QMC_DIMS,
 ):
     """Fused-path-loop radiance (N,3) for rays (o, d) — drop-in for
     ``megakernel.trace_paths`` on supported scenes (forward only)."""
-    if sampler != "hash":
-        raise NotImplementedError(
-            "the fused kernel's Halton variant is not ported yet (slice 4)"
-        )
+    code = _sampler_code(sampler, qmc_dims)
     if not o.is_cuda:
-        from .megakernel import MegakernelConfig, trace_paths
+        from .megakernel import trace_paths
 
-        cfg = MegakernelConfig(
-            max_depth=max_depth, rr_start_depth=rr_start_depth, seed=seed,
-            backend="torch", fused="off",
-        )
-        return trace_paths(scene, cfg, px, py, sample, o, d, device=o.device)
+        cfg = _plain_cfg(max_depth, rr_start_depth, seed, sampler)
+        return trace_paths(scene, cfg, px, py, sample, o, d, device=o.device, qmc_dims=qmc_dims)
 
     dev = o.device
     if scene.device != dev:
@@ -148,30 +173,31 @@ def trace_paths_fused(
     o, d = o.contiguous(), d.contiguous()
     px32 = _u32_as_i32(px, n, dev)
     py32 = _u32_as_i32(py, n, dev)
-    ss32 = _u32_as_i32(torch.as_tensor(sample, dtype=torch.int64, device=dev) ^ seed, n, dev)
+    s32 = _u32_as_i32(sample, n, dev)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_mats = scene.materials.mtype.shape[0]
+    smp = (code, seed & 0xFFFFFFFF, qmc_dims)
     if scene.bvh is not None:
         check_bvh_scene(scene, o, d)
         rc = _lib().pt_fused_bvh(
             o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            ss32.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
+            s32.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
             scene.bvh.meta.data_ptr(), scene.tri_v0.data_ptr(), scene.tri_e0.data_ptr(),
             scene.tri_e1.data_ptr(), scene.tri_mat.data_ptr(),
-            n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, out.data_ptr(),
-            stream,
+            n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, *smp,
+            out.data_ptr(), stream,
         )
     else:
         tables = pack_tables(scene)
         rc = _lib().pt_fused_bruteforce(
             o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            ss32.data_ptr(), tables.data_ptr(),
+            s32.data_ptr(), tables.data_ptr(),
             n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
-            rr_start_depth, out.data_ptr(), stream,
+            rr_start_depth, *smp, out.data_ptr(), stream,
         )
     if rc:
         raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
@@ -180,3 +206,140 @@ def trace_paths_fused(
 
 
 trace_paths_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the depth-sorted fused wavefront
+# ---------------------------------------------------------------------------
+
+# rows of the (PLANES, N) path state: 32-bit planes, float32 or, for the
+# flags and keys, int32 bit patterns (u32 keys as their low 32 bits)
+O, D, BETA, RADIANCE = 0, 3, 6, 9  # three planes each, f32
+ALIVE, INSIDE, ETA_SCALE, PREV_PDF, PREV_DELTA = 12, 13, 14, 15, 16
+PX, PY, SAMPLE, SLOT = 17, 18, 19, 20  # the keys the paths carry along
+PLANES = 21
+
+
+def pack_path_state(px, py, sample, o, d) -> torch.Tensor:
+    """The (PLANES, N) float32 state of N fresh paths (``init_path_state``'s
+    values) with their RNG keys and their slot, the ray's own index."""
+    n, dev = o.shape[0], o.device
+    st = torch.empty((PLANES, n), dtype=torch.float32, device=dev)
+    si = st.view(torch.int32)
+    st[O:O + 3] = o.T
+    st[D:D + 3] = d.T
+    st[BETA:BETA + 3] = 1.0
+    st[RADIANCE:RADIANCE + 3] = 0.0
+    si[ALIVE] = 1
+    si[INSIDE] = 0
+    st[ETA_SCALE] = 1.0
+    st[PREV_PDF] = 0.0
+    si[PREV_DELTA] = 1  # the camera counts as delta
+    si[PX] = _u32_as_i32(px, n, dev)
+    si[PY] = _u32_as_i32(py, n, dev)
+    si[SAMPLE] = _u32_as_i32(sample, n, dev)
+    si[SLOT] = torch.arange(n, dtype=torch.int32, device=dev)
+    return st
+
+
+def unpack_path_state(st: torch.Tensor):
+    """(PathState, px, py, sample) of a packed state: (N, 3) and (N,)
+    tensors, keys as int64 in [0, 2^32)."""
+    from .megakernel import PathState
+
+    si = st.view(torch.int32)
+    v3 = lambda p: st[p:p + 3].T.contiguous()  # noqa: E731
+    key = lambda p: si[p].to(torch.int64) & R.M32  # noqa: E731
+    state = PathState(
+        o=v3(O), d=v3(D), beta=v3(BETA), radiance=v3(RADIANCE),
+        alive=si[ALIVE] != 0, inside=si[INSIDE] != 0, eta_scale=st[ETA_SCALE].clone(),
+        prev_pdf=st[PREV_PDF].clone(), prev_delta=si[PREV_DELTA] != 0,
+    )
+    return state, key(PX), key(PY), key(SAMPLE)
+
+
+def bounce_plain(scene: Scene, st: torch.Tensor, depth: int, rr_start_depth: int = 2,
+                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS) -> None:
+    """The single-bounce kernel's plain version: ``bounce_step`` on the
+    unpacked state, written back into ``st`` in place."""
+    from .megakernel import bounce_step
+
+    cfg = _plain_cfg(depth + 1, rr_start_depth, seed, sampler)
+    state, px, py, sample = unpack_path_state(st)
+    new = bounce_step(scene, cfg, R.Sampler(sampler, seed, qmc_dims), px, py, sample, depth, state)
+    si = st.view(torch.int32)
+    for p, v in ((O, new.o), (D, new.d), (BETA, new.beta), (RADIANCE, new.radiance)):
+        st[p:p + 3] = v.T
+    si[ALIVE] = new.alive.to(torch.int32)
+    si[INSIDE] = new.inside.to(torch.int32)
+    st[ETA_SCALE] = new.eta_scale
+    st[PREV_PDF] = new.prev_pdf
+    si[PREV_DELTA] = new.prev_delta.to(torch.int32)
+
+
+def bounce_fused(scene: Scene, st: torch.Tensor, depth: int, rr_start_depth: int = 2,
+                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS) -> None:
+    """One bounce at ``depth`` of every live path of the packed state
+    ``st`` (``pack_path_state``), in place: the single-bounce kernel for a
+    CUDA state, its plain version ``bounce_plain`` for a CPU state."""
+    code = _sampler_code(sampler, qmc_dims)
+    if scene.bvh is None:
+        raise ValueError("the single-bounce kernel traces BVH scenes only")
+    if not st.is_cuda:
+        bounce_plain(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims)
+        return
+    n = st.shape[1]
+    if st.dtype != torch.float32 or st.shape[0] != PLANES or not st.is_contiguous():
+        raise ValueError(f"the path state must be a contiguous ({PLANES}, N) float32 tensor")
+    check_bvh_scene(scene, st[O:O + 3].T, st[D:D + 3].T)
+    if n == 0:
+        return
+    k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
+    rc = _lib().pt_bounce_bvh(
+        st.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
+        scene.bvh.meta.data_ptr(), scene.tri_v0.data_ptr(), scene.tri_e0.data_ptr(),
+        scene.tri_e1.data_ptr(), scene.tri_mat.data_ptr(),
+        n, scene.materials.mtype.shape[0], scene.num_lights, k, depth, rr_start_depth,
+        code, seed & 0xFFFFFFFF, qmc_dims, torch.cuda.current_stream(st.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"single-bounce kernel launch failed: CUDA error {rc}")
+    bounce_fused.launches += 1
+
+
+bounce_fused.launches = 0
+
+
+def sort_paths(scene: Scene, st: torch.Tensor) -> torch.Tensor:
+    """The packed state with its paths stably sorted by ``ray_sort_key``
+    (direction octant | origin Morton; dead paths last): one sort of the
+    keys and one gather of all the planes, keys and slots included."""
+    alive = st.view(torch.int32)[ALIVE] != 0
+    key = ray_sort_key(st[O:O + 3].T, st[D:D + 3].T, scene.bounds[0], scene.bounds[1], alive)
+    return st.index_select(1, torch.sort(key, stable=True).indices)
+
+
+def trace_paths_fused_sorted(
+    scene: Scene, px, py, sample, o, d,
+    max_depth: int = 5, rr_start_depth: int = 2, seed: int = 0,
+    sampler: str = "hash", qmc_dims: int = R.QMC_DIMS,
+):
+    """Depth-sorted fused wavefront → radiance (N,3) in the rays' own
+    order; the same estimator as ``trace_paths_fused``. Depth 0 runs on the
+    rays as given (camera rays in Morton order); before each later depth
+    the paths are re-sorted (``sort_paths``); one single-bounce launch per
+    depth; at the end one scatter by slot. For CPU tensors every bounce is
+    the plain ``bounce_step``, so the result equals ``trace_paths``'s bit
+    for bit. BVH scenes only."""
+    if scene.bvh is None:
+        raise ValueError("the depth-sorted wavefront traces BVH scenes only")
+    _sampler_code(sampler, qmc_dims)
+    n = o.shape[0]
+    st = pack_path_state(px, py, sample, o, d)
+    for depth in range(max_depth):
+        if depth > 0:
+            st = sort_paths(scene, st)
+        bounce_fused(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims)
+    out = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+    out[st.view(torch.int32)[SLOT].to(torch.int64)] = st[RADIANCE:RADIANCE + 3].T
+    return out

@@ -17,7 +17,7 @@ class RunConfig:
     spp: int = 128
     kspp: int = 8  # samples per progressive batch
     max_depth: int = 5
-    sampler: str = "hash"
+    sampler: str = "hash"  # "hash" | "halton" (Owen-scrambled Halton)
     seed: int = 0
     device: str = "cuda"  # cuda | cpu
     save_partial: bool = False  # dump mean/MSE images every batch
@@ -38,7 +38,7 @@ def parse_args(argv=None) -> RunConfig:
     p.add_argument("--spp", type=int, default=d.spp)
     p.add_argument("--kspp", type=int, default=d.kspp, help="samples per batch")
     p.add_argument("--max-depth", type=int, default=d.max_depth)
-    p.add_argument("--sampler", choices=["hash"], default=d.sampler)
+    p.add_argument("--sampler", choices=["hash", "halton"], default=d.sampler)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--device", choices=["cuda", "cpu"], default=d.device)
     p.add_argument("--save-partial", action="store_true")

@@ -44,6 +44,17 @@ def test_cli_renders_mesh_scene(tmp_path):
     assert read_png(str(tmp_path / "mesh_sqrt_mse.png")).shape == (16, 16, 3)
 
 
+def test_cli_halton_sampler(tmp_path):
+    out = tmp_path / "halton.png"
+    args = ["--scene", "cornell", "--device", "cpu", "--width", "16", "--height", "16",
+            "--spp", "1", "--max-depth", "3", "--sampler", "halton", "--log-level", "warning",
+            "--out", str(out)]
+    assert cli.main(args) == 0
+    assert read_png(str(out)).mean() > 0
+    with pytest.raises(SystemExit):
+        cli.main(["--sampler", "sobol"])
+
+
 def test_cli_refuses_unported_scenes(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(ARGS + ["--scene", "scenes/cornell.json", "--out", str(tmp_path / "x.png")])

@@ -84,14 +84,14 @@ def _mixed_scene(dev):
     return scene_from_host(hs, use_light_tree=False, device=dev)
 
 
-def _camera_rays(dev, scene, spp):
+def _camera_rays(dev, scene, spp, sampler="hash"):
     from cuda_optix_pathtracing_tpu_torch.ops import rng as R
     from cuda_optix_pathtracing_tpu_torch.ops.camera import generate_rays, pixel_centers
 
     pix = pixel_centers(32, 32, dev).repeat(spp, 1)
     sample = torch.repeat_interleave(torch.arange(spp, device=dev), 32 * 32)
     px, py = pix[:, 0].long(), pix[:, 1].long()
-    u1, u2 = R.Sampler("hash", 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
+    u1, u2 = R.Sampler(sampler, 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
     o, d = generate_rays(pix + torch.stack([u1, u2], -1), scene.cam_from_raster,
                          scene.world_from_cam)
     return px, py, sample, o, d
@@ -170,3 +170,99 @@ def test_render_resolves_to_fused_on_cuda(dev, scene, mesh):
     assert MK.resolve_fused(scene, MK.MegakernelConfig()).fused == "on"
     assert MK.resolve_fused(scene, MK.MegakernelConfig(backend="torch")).fused == "off"
     assert MK.resolve_fused(mesh, MK.MegakernelConfig()).fused == "on"
+
+
+# the Halton variant of the fused kernel in both geometry modes, against
+# the plain Halton trace_paths on Halton camera rays
+@pytest.mark.parametrize("case", ["cornell", "mesh"])
+def test_fused_halton_matches_trace_paths(dev, scene, mesh, case):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+
+    scene = mesh if case == "mesh" else scene
+    spp = 4
+    px, py, sample, o, d = _camera_rays(dev, scene, spp, sampler="halton")
+    before = trace_paths_fused.launches
+    rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=3, seed=9, sampler="halton")
+    assert trace_paths_fused.launches == before + 1
+    rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, seed=9, sampler="halton",
+                                                   backend="torch"),
+                        px, py, sample, o, d, device=dev)
+    diff = ((rk - rp).reshape(spp, -1, 3).sum(0) / spp).abs()
+    assert bool(torch.isfinite(rk).all()) and float(rk.mean()) > 0.0
+    assert float(diff.mean()) < 1e-4
+    assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
+def _check_planes(sk, sp):
+    """Kernel 6's state against bounce_step's, plane by plane, to the
+    tolerances of chip_smoke.py's check_planes: keys and slots equal;
+    flags equal on 99.99 % of the paths; o and d within 1e-5; beta,
+    eta_scale and prev_pdf within 1e-5 relative on 99 % of the paths and
+    1e-3 on 99.9 % (the kernel's shading rounds otherwise, which a sharp
+    GGX pdf magnifies); radiance within the parity bar."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+
+    ik, ip = sk.view(torch.int32), sp.view(torch.int32)
+    for p in (MKC.PX, MKC.PY, MKC.SAMPLE, MKC.SLOT):
+        assert bool((ik[p] == ip[p]).all()), p
+    for p in (MKC.ALIVE, MKC.INSIDE, MKC.PREV_DELTA):
+        assert int((ik[p] != ip[p]).sum()) <= 1e-4 * sk.shape[1], p
+    gap = (sk[:MKC.BETA] - sp[:MKC.BETA]).abs()
+    assert bool((gap <= 1e-5 * sp[:MKC.BETA].abs().clamp(min=1.0)).all())
+    for p in (MKC.BETA, MKC.BETA + 1, MKC.BETA + 2, MKC.ETA_SCALE, MKC.PREV_PDF):
+        rel = (sk[p] - sp[p]).abs() / sp[p].abs().clamp(min=1e-30)
+        assert float((rel > 1e-5).float().mean()) <= 1e-2, p
+        assert float((rel > 1e-3).float().mean()) <= 1e-3, p
+    diff = (sk[MKC.RADIANCE:MKC.RADIANCE + 3] - sp[MKC.RADIANCE:MKC.RADIANCE + 3]).abs()
+    assert float(diff.mean()) < 1e-4
+    assert float((diff.max(0).values > 1e-3).float().mean()) < 0.005
+
+
+@pytest.mark.parametrize("sampler", ["hash", "halton"])
+def test_bounce_kernel_matches_bounce_step(dev, mesh, sampler):
+    """Kernel 6 at depths 0-3 on the sorted state, dead paths included,
+    against the plain bounce on the same state."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+
+    st = MKC.pack_path_state(*_camera_rays(dev, mesh, 4, sampler=sampler))
+    for depth in range(4):
+        if depth:
+            st = MKC.sort_paths(mesh, st)
+        sk, sp = st.clone(), st.clone()
+        before = MKC.bounce_fused.launches
+        MKC.bounce_fused(mesh, sk, depth, seed=3, sampler=sampler)
+        assert MKC.bounce_fused.launches == before + 1
+        MKC.bounce_plain(mesh, sp, depth, seed=3, sampler=sampler)
+        torch.cuda.synchronize()
+        _check_planes(sk, sp)
+        dead = st.view(torch.int32)[MKC.ALIVE] == 0
+        assert bool((sk[:, dead] == st[:, dead]).all())  # dead paths untouched
+        st = sk
+    assert int((st.view(torch.int32)[MKC.ALIVE] == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("sampler", ["hash", "halton"])
+def test_sorted_route_matches_fused(dev, mesh, sampler):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+
+    spp = 4
+    px, py, sample, o, d = _camera_rays(dev, mesh, spp, sampler=sampler)
+    before = MKC.bounce_fused.launches
+    rs = MKC.trace_paths_fused_sorted(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
+    assert MKC.bounce_fused.launches == before + 5
+    rf = MKC.trace_paths_fused(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
+    diff = ((rs - rf).reshape(spp, -1, 3).sum(0) / spp).abs()
+    assert bool(torch.isfinite(rs).all()) and float(rs.mean()) > 0.0
+    assert float(diff.mean()) < 1e-4
+    assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
+def test_sorted_route_refuses_brute_force_scene(dev, scene):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+
+    px, py, sample, o, d = _camera_rays(dev, scene, 1)
+    with pytest.raises(ValueError, match="BVH"):
+        MKC.trace_paths_fused_sorted(scene, px, py, sample, o, d)
+    with pytest.raises(ValueError, match="BVH"):
+        MKC.bounce_fused(scene, MKC.pack_path_state(px, py, sample, o, d), 0)
