@@ -15,9 +15,11 @@ Two scenes, each down every route of the port:
   packed rows, a 432-node BVH): with ``fused="off"`` the sorted wavefront,
   whose queries go to the traversal kernels ``bvh_closest`` and
   ``bvh_anyhit``; with ``fused="on"`` the fused kernel's BVH mode
-  ``pt_fused_bvh`` (hash and Halton); and the depth-sorted fused
-  wavefront ``trace_paths_fused_sorted``, one launch of the single-bounce
-  kernel ``pt_bounce_bvh`` per depth (hash and Halton).
+  ``pt_fused_bvh`` (hash and Halton; persistent blocks that regenerate
+  paths over the compact node table); and the
+  depth-sorted fused wavefront ``trace_paths_fused_sorted``, one launch of
+  the single-bounce kernel ``pt_bounce_bvh`` per depth (hash and Halton),
+  each launch in the order of the sort keys the last one wrote.
 
 Phases (each fails loudly; there is no CPU fallback):
 
@@ -28,9 +30,11 @@ Phases (each fails loudly; there is no CPU fallback):
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, to the tolerances stated below (the mesh kernels also at
    the main path's own launches, in phase 4): the Halton fused kernel in
-   both modes, and the single-bounce kernel plane by plane against
+   both modes, and the single-bounce kernel column by column against
    ``bounce_step`` at depths 0, 1 (sorted) and 3 (sorted, many dead
-   paths) of the 1,048,576-path mesh pass;
+   paths) of the 1,048,576-path mesh pass, its keys against
+   ``path_keys``; the fused BVH kernel at n = 0, 1, 37 and 65,549; both
+   BVH kernels on a deeper tree whose nodes exceed L1 (subdivision 128);
 3. the main paths, launch counters zeroed just before and read just after
    each run: ``render(cornell_box)`` at 64 spp (fused kernel), the CLI
    (8 spp), ``render`` at 8 spp with ``fused="off"``; the same renders and
@@ -39,16 +43,18 @@ Phases (each fails loudly; there is no CPU fallback):
    with ``fused="off"`` and with ``fused="on"`` (hash and Halton), the CLI
    on ``cornell-mesh``, and ``trace_paths_fused_sorted`` on the leg's
    1,048,576 camera rays (hash and Halton), held to ``pt_fused_bvh`` on
-   the same rays;
+   the same rays bit for bit;
 4. the mesh kernels against their plain versions at the main path's own
    launches, recorded from one more render of each route: kernel 4 at a
    1,048,576-ray launch (sorted, with parked dead rays), kernel 5 at the
    1,048,576-path launch (every 8th path held to ``trace_paths``); then
-   timing lines: each kernel's device time per launch (torch.profiler),
+   timing lines: each kernel's device time per launch
+   (torch.profiler; kernels 5 and 6 at their 1,048,576-path launches),
    the wrapper call's time (CUDA events), its plain version's time,
    launches per spp and its bound; the single-bounce kernel's device time
    (CUDA events around launches queued behind a device sleep) and bound
-   at each depth, and the sort and gather between depths; the
+   at each depth, the sort between depths op by op, and the share of
+   lane-bounces a warp of one path per thread would keep busy; the
    Mpaths/s of repeated renders of both scenes and routes, of the
    ``fused="off"`` route with and without the ray sort and Morton pixel
    order, and of the depth-sorted wavefront against the fused kernel in
@@ -90,8 +96,14 @@ MESH_PARITY_STRIDE = 8  # kernel 5 at its main-path launch: every 8th path
 MESH_CLI_SPP = 4
 K6_CHECK_DEPTHS = (0, 1, 3)  # kernel 6 held to bounce_step at these depths
 K6_STRIDE = 8  # ... on every 8th path of the 1,048,576-path pass
-K6_BYTES_LIVE = 148  # a live path: 20 planes read, 17 written, 4 B each
-K6_BYTES_DEAD = 4  # a dead path: its alive flag
+# kernel 6's bytes per path: a live path reads 20 words of its row and
+# writes 17 and its key; a dead one reads its flag and writes its key;
+# after depth 0 each also reads its row index from the permutation
+K6_BYTES_LIVE = 4 * (20 + 17 + 1)
+K6_BYTES_DEAD = 4 * (1 + 1)
+K6_BYTES_PERM = 8
+K5_SIZES = (0, 1, 37, 65_549)  # kernel 5 held to its plain version at these n
+MESH_BIG_SUBDIV = 128  # a deeper tree (depth 8) whose 396 KB of nodes exceed L1
 # the Halton sampler's integer work: pcg4d for the pixel seed (~36
 # operations), then per odd-base digit a division, the digit, the prefix
 # hash (pcg_hash and its key, 11), the scrambled digit's sum and modulo,
@@ -567,45 +579,56 @@ def check_parity(label, rad_k, rad_p, spp: int, ref: str = "trace_paths") -> flo
 
 
 def check_planes(MKC, label, sk, sp) -> float:
-    """The single-bounce kernel's state ``sk`` against the plain bounce's
-    ``sp`` (the same paths), plane by plane: the keys and slots equal; the
-    flags (alive, inside, prev_delta) equal on 99.99 % of the paths; o and
-    d within 1e-5 (relative, or absolute near 0); beta, eta_scale and
-    prev_pdf within 1e-5 relative on 99 % of the paths and within 1e-3 on
-    99.9 %; radiance within the parity bar → max abs radiance error. The
-    kernel rounds the shading math otherwise than PyTorch (FMAs, acosf): a
-    few ulp, which a sharp GGX lobe's pdf, a ratio f / pdf or the
-    Oren-Nayar term's cancellation can magnify past 1e-5, and which can
-    flip a lobe or roulette decision that lies within them."""
+    """The single-bounce kernel's state rows ``sk`` against the plain
+    bounce's ``sp`` (the same paths), column by column: the keys and slots
+    equal; the flags (alive, inside, prev_delta) equal on 99.99 % of the
+    paths; o and d within 1e-5 (relative, or absolute near 0); beta,
+    eta_scale and prev_pdf within 1e-5 relative on 99 % of the paths and
+    within 1e-3 on 99.9 %; radiance within the parity bar → max abs
+    radiance error. The kernel rounds the shading math otherwise than
+    PyTorch (FMAs, acosf): a few ulp, which a sharp GGX lobe's pdf, a ratio
+    f / pdf or the Oren-Nayar term's cancellation can magnify past 1e-5,
+    and which can flip a lobe or roulette decision that lies within them."""
     import torch
 
     torch.cuda.synchronize()
     ik, ip = sk.view(torch.int32), sp.view(torch.int32)
-    n = sk.shape[1]
-    for name, p in (("px", MKC.PX), ("py", MKC.PY), ("sample", MKC.SAMPLE), ("slot", MKC.SLOT)):
-        check(bool((ik[p] == ip[p]).all()), f"{label}: {name} plane equal")
-    for name, p in (("alive", MKC.ALIVE), ("inside", MKC.INSIDE), ("prev_delta", MKC.PREV_DELTA)):
-        n_diff = int((ik[p] != ip[p]).sum())
-        check(n_diff <= 1e-4 * n, f"{label}: {name} plane equal on all but {n_diff} of {n} "
+    n = sk.shape[0]
+    for name, c in (("px", MKC.PX), ("py", MKC.PY), ("sample", MKC.SAMPLE), ("slot", MKC.SLOT)):
+        check(bool((ik[:, c] == ip[:, c]).all()), f"{label}: {name} column equal")
+    for name, c in (("alive", MKC.ALIVE), ("inside", MKC.INSIDE), ("prev_delta", MKC.PREV_DELTA)):
+        n_diff = int((ik[:, c] != ip[:, c]).sum())
+        check(n_diff <= 1e-4 * n, f"{label}: {name} column equal on all but {n_diff} of {n} "
               f"paths (<= 0.01 %)")
-    gap = (sk[:MKC.BETA] - sp[:MKC.BETA]).abs()
-    tol = 1e-5 * torch.maximum(sp[:MKC.BETA].abs(), torch.ones_like(gap))
+    gap = (sk[:, :MKC.BETA] - sp[:, :MKC.BETA]).abs()
+    tol = 1e-5 * torch.maximum(sp[:, :MKC.BETA].abs(), torch.ones_like(gap))
     check(bool((gap <= tol).all()),
           f"{label}: o, d within 1e-5 (max abs {float(gap.max()):.2e})")
-    for name, p0, p1 in (("beta", MKC.BETA, MKC.BETA + 3), ("eta_scale", MKC.ETA_SCALE, MKC.ETA_SCALE + 1),
+    for name, c0, c1 in (("beta", MKC.BETA, MKC.BETA + 3), ("eta_scale", MKC.ETA_SCALE, MKC.ETA_SCALE + 1),
                          ("prev_pdf", MKC.PREV_PDF, MKC.PREV_PDF + 1)):
-        rel = (sk[p0:p1] - sp[p0:p1]).abs() / sp[p0:p1].abs().clamp(min=1e-30)
+        rel = (sk[:, c0:c1] - sp[:, c0:c1]).abs() / sp[:, c0:c1].abs().clamp(min=1e-30)
         frac = float((rel > 1e-5).float().mean())
         frac3 = float((rel > 1e-3).float().mean())
         check(frac <= 1e-2 and frac3 <= 1e-3,
               f"{label}: {name} within 1e-5 relative on {1 - frac:.6f} of the paths (>= 0.99), "
               f"within 1e-3 on {1 - frac3:.6f} (>= 0.999); max rel {float(rel.max()):.2e}")
     rad = slice(MKC.RADIANCE, MKC.RADIANCE + 3)
-    diff = (sk[rad] - sp[rad]).abs()
-    check(float(diff.mean()) < 1e-4 and float((diff.max(0).values > 1e-3).float().mean()) < 0.005,
+    diff = (sk[:, rad] - sp[:, rad]).abs()
+    check(float(diff.mean()) < 1e-4 and float((diff.max(1).values > 1e-3).float().mean()) < 0.005,
           f"{label}: radiance mean abs diff {float(diff.mean()):.2e} < 1e-4, "
-          f"{float((diff.max(0).values > 1e-3).float().mean()):.5f} of paths off by > 1e-3")
+          f"{float((diff.max(1).values > 1e-3).float().mean()):.5f} of paths off by > 1e-3")
     return float(diff.max())
+
+
+def check_keys(MKC, label, scene, st, keys) -> None:
+    """The single-bounce kernel's sort keys equal ``path_keys`` of the rows
+    it wrote, bit for bit, dead paths at 0x7FFFFFFF."""
+    import torch
+
+    torch.cuda.synchronize()
+    n_dead = int((keys == 0x7FFFFFFF).sum())
+    check(torch.equal(keys, MKC.path_keys(scene, st)),
+          f"{label}: the kernel's int32 keys equal path_keys of its rows ({n_dead} dead)")
 
 
 def check_means_agree(label, film_a, film_b) -> None:
@@ -786,26 +809,66 @@ def main() -> int:
     err["bounce"] = 0.0
     for smp, depths in (("hash", K6_CHECK_DEPTHS), ("halton", (0,))):
         st = MKC.pack_path_state(*camera_rays(mesh, MESH_SPP, morton=True, sampler=smp))
+        perm = None
         for depth in range(max(depths) + 1):
-            if depth:
-                st = MKC.sort_paths(mesh, st)
             if depth in depths:
                 sub = torch.arange(0, n_pass, K6_STRIDE, device=dev)
-                sp = st[:, sub].contiguous()
+                sp = st[sub].clone()
                 MKC.bounce_plain(mesh, sp, depth, sampler=smp)
-                n_dead = int((st.view(torch.int32)[MKC.ALIVE] == 0).sum())
+                n_dead = int((st.view(torch.int32)[:, MKC.ALIVE] == 0).sum())
                 before = st.clone()
-                MKC.bounce_fused(mesh, st, depth, sampler=smp)
-                dead = before.view(torch.int32)[MKC.ALIVE] == 0
-                check(bool((st[:, dead] == before[:, dead]).all()),
-                      f"kernel 6 {smp} depth {depth}: the {n_dead} dead paths' planes untouched")
-                err["bounce"] = max(err["bounce"], check_planes(
-                    MKC, f"kernel 6 {smp} depth {depth} ({n_dead} dead of {n_pass})",
-                    st[:, sub], sp))
+                keys = MKC.bounce_fused(mesh, st, depth, sampler=smp, perm=perm)
+                dead = before.view(torch.int32)[:, MKC.ALIVE] == 0
+                check(bool((st[dead] == before[dead]).all()),
+                      f"kernel 6 {smp} depth {depth}: the {n_dead} dead paths' rows untouched")
+                label = f"kernel 6 {smp} depth {depth} ({n_dead} dead of {n_pass})"
+                check_keys(MKC, label, mesh, st, keys)
+                err["bounce"] = max(err["bounce"], check_planes(MKC, label, st[sub], sp))
                 del before
             else:
-                MKC.bounce_fused(mesh, st, depth, sampler=smp)
+                keys = MKC.bounce_fused(mesh, st, depth, sampler=smp, perm=perm)
+            perm = MKC.sort_paths(keys)
     del st
+
+    # kernel 5 (persistent, regenerating paths) at sizes below one wave of
+    # its grid and ragged, against its plain version path by path (the
+    # sweep in chunks of 1,024 rows: the same result as 32, fewer launches)
+    cfg_check = MK.MegakernelConfig(max_depth=DEPTH, backend="torch", fused="off",
+                                    tri_chunk=1024)
+    kpx, kpy, ks, ko, kd = camera_rays(mesh, 2, morton=True)
+    for n_k in K5_SIZES:
+        before = trace_paths_fused.launches
+        args = tuple(x[:n_k] for x in (kpx, kpy, ks, ko, kd))
+        rk = trace_paths_fused(mesh, *args, max_depth=DEPTH)
+        check(rk.shape == (n_k, 3) and trace_paths_fused.launches == before + (n_k > 0),
+              f"fused BVH at n = {n_k}: ({n_k}, 3) radiance, {int(n_k > 0)} launch")
+        if n_k:
+            rp = MK.trace_paths(mesh, cfg_check, *args, device=dev)
+            err["fused_bvh"] = max(err.get("fused_bvh", 0.0),
+                                   check_parity(f"fused BVH at n = {n_k}", rk, rp, 1))
+
+    # a deeper tree whose nodes exceed L1
+    mesh_big = cornell_box_mesh(W, H, subdiv=MESH_BIG_SUBDIV, device=dev)
+    print(f"  subdivision {MESH_BIG_SUBDIV}: {mesh_big.bvh.num_nodes} nodes "
+          f"({mesh_big.bvh.nodes.numel() * 4 / 1024:.1f} KB), depth {mesh_big.bvh.depth}; "
+          f"subdivision {MESH_SUBDIV}: {mesh.bvh.nodes.numel() * 4 / 1024:.1f} KB")
+    gpx, gpy, gs, go, gd = camera_rays(mesh_big, 1, morton=True)
+    sub = torch.arange(0, n1, MESH_PARITY_STRIDE, device=dev)
+    rk = trace_paths_fused(mesh_big, gpx, gpy, gs, go, gd, max_depth=DEPTH)
+    rp = MK.trace_paths(mesh_big, cfg_check, gpx[sub], gpy[sub], gs[sub], go[sub], gd[sub],
+                        device=dev)
+    err["fused_bvh"] = max(err["fused_bvh"], check_parity(
+        f"fused BVH, subdivision {MESH_BIG_SUBDIV} (every {MESH_PARITY_STRIDE}th of {n1} paths)",
+        rk[sub], rp, 1))
+    st = MKC.pack_path_state(gpx, gpy, gs, go, gd)
+    sp = st[sub].clone()
+    MKC.bounce_plain(mesh_big, sp, 0)
+    keys = MKC.bounce_fused(mesh_big, st, 0)
+    label = (f"kernel 6, subdivision {MESH_BIG_SUBDIV}, depth 0 (every {MESH_PARITY_STRIDE}th of "
+             f"{n1} paths)")
+    check_keys(MKC, label, mesh_big, st, keys)
+    err["bounce"] = max(err["bounce"], check_planes(MKC, label, st[sub], sp))
+    del mesh_big, st
 
     # ---- 3. the main paths -------------------------------------------------
     print("phase 3: main paths")
@@ -979,6 +1042,8 @@ def main() -> int:
               f"({n_far} of {n_pass} paths outside it, max abs diff "
               f"{float((rs - rf).abs().max()):.2e})")
         check_parity(f"sorted route ({smp})", rs, rf, MESH_SPP, ref="pt_fused_bvh")
+        check(torch.equal(rs, rf), f"sorted route ({smp}) equals pt_fused_bvh bit for bit on all "
+              f"{n_pass} paths")
 
     # ---- 4. the main paths' own launches, and timing -----------------------
     print(f"phase 4: the mesh kernels at the main path's own launches, and timing {tag}")
@@ -1041,10 +1106,10 @@ def main() -> int:
     cfg_fkw = MK.MegakernelConfig(backend="torch", fused="off", **fkw)
     rad_p = MK.trace_paths(mesh_main, cfg_fkw, fpx[sub], fpy[sub], fsample[sub], fo[sub],
                            fd[sub], device=dev)
-    err["fused_bvh"] = check_parity(
+    err["fused_bvh"] = max(err["fused_bvh"], check_parity(
         f"fused BVH at its main-path launch (every {MESH_PARITY_STRIDE}th of "
         f"{fo.shape[0]} paths, {sub.shape[0]})", rad_k[sub], rad_p, MESH_SPP
-    )
+    ))
 
     def replay_closest():
         for o, d in rec["closest"]:
@@ -1064,9 +1129,8 @@ def main() -> int:
         "anyhit": (lambda: anyhit_bruteforce(ro1, rd1, v0, e0, e1, tm1), 1),
         "bvh_closest": (replay_closest, len(rec["closest"])),
         "bvh_anyhit": (replay_any, len(rec["any"])),
-        "fused_bvh": (lambda: trace_paths_fused(mesh, mpx1, mpy1, ms1, mo1, md1,
-                                                max_depth=DEPTH), 1),
-        "fused_bvh_halton": (lambda: trace_paths_fused(mesh, mhpx1, mhpy1, mhs1, mho1, mhd1,
+        "fused_bvh": (lambda: trace_paths_fused(mesh_main, fpx, fpy, fsample, fo, fd, **fkw), 1),
+        "fused_bvh_halton": (lambda: trace_paths_fused(mesh_main, *sorted_rays["halton"],
                                                        max_depth=DEPTH, sampler="halton"), 1),
     }
     kernel_names = {
@@ -1076,8 +1140,8 @@ def main() -> int:
         "anyhit": "::anyhit_kernel(",
         "bvh_closest": "::bvh_closest_kernel(",
         "bvh_anyhit": "::bvh_anyhit_kernel(",
-        "fused_bvh": ("::pt_fused_kernel<", "BvhGeo,", "HashRng>"),
-        "fused_bvh_halton": ("::pt_fused_kernel<", "BvhGeo,", "HaltonRng>"),
+        "fused_bvh": ("::pt_fused_bvh_kernel<", "HashRng>"),
+        "fused_bvh_halton": ("::pt_fused_bvh_kernel<", "HaltonRng>"),
         "bounce": ("::pt_bounce_kernel<", "HashRng>"),
     }
     ms = {k: kernel_ms(fn, 4 if per > 1 else 20, kernel_names[k], per)
@@ -1111,38 +1175,57 @@ def main() -> int:
                                                            mho1, mhd1, device=dev), 1, reps=1),
     }
 
-    # kernel 6 per depth at the main path's own launches: the states that
-    # one more sorted pass (hash) hands each launch, and the unsorted
-    # states the sort between depths takes
-    k6_in, k6_unsorted = [], []
+    # kernel 6 per depth at the main path's own launches: the rows and the
+    # permutation that one more sorted pass (hash) hands each launch, and
+    # the keys that the sort between depths takes
+    k6_in, k6_perm, k6_keys = [], [], []
     st = MKC.pack_path_state(*sorted_rays["hash"])
+    perm = None
     for depth in range(DEPTH):
-        if depth:
-            k6_unsorted.append(st.clone())
-            st = MKC.sort_paths(mesh_main, st)
         k6_in.append(st.clone())
-        MKC.bounce_fused(mesh_main, st, depth)
-    check(torch.equal(rad_sorted["hash"][st.view(torch.int32)[MKC.SLOT].long()],
-                      st[MKC.RADIANCE:MKC.RADIANCE + 3].T),
+        k6_perm.append(perm)
+        keys = MKC.bounce_fused(mesh_main, st, depth, perm=perm)
+        if depth + 1 < DEPTH:
+            k6_keys.append(keys.clone())
+            perm = MKC.sort_paths(keys)
+    check(torch.equal(rad_sorted["hash"], st[:, MKC.RADIANCE:MKC.RADIANCE + 3]),
           "the recorded sorted pass repeats the main path's radiance bit for bit")
     del st
-    k6_live = [int((x.view(torch.int32)[MKC.ALIVE] != 0).sum()) for x in k6_in]
-    # each timed launch on its own copy of its depth's state
-    def k6_launch(x, dep, **kw):
-        c = x.clone()
-        return lambda: MKC.bounce_fused(mesh_main, c, dep, **kw)
+    k6_live = [int((x.view(torch.int32)[:, MKC.ALIVE] != 0).sum()) for x in k6_in]
 
-    k6_ms = [queued_ms(lambda x=x, dep=dep: k6_launch(x, dep)) for dep, x in enumerate(k6_in)]
+    # each timed launch on its own copy of its depth's rows
+    def k6_launch(x, p, dep, **kw):
+        c = x.clone()
+        return lambda: MKC.bounce_fused(mesh_main, c, dep, perm=p, **kw)
+
+    def k6_pass_ms():
+        return [queued_ms(lambda x=x, p=p, dep=dep: k6_launch(x, p, dep))
+                for dep, (x, p) in enumerate(zip(k6_in, k6_perm))]
+
+    k6_ms = k6_pass_ms()
     k6_h0 = MKC.pack_path_state(*sorted_rays["halton"])
-    k6_halton0_ms = queued_ms(lambda: k6_launch(k6_h0, 0, sampler="halton"))
+    k6_halton0_ms = queued_ms(lambda: k6_launch(k6_h0, None, 0, sampler="halton"))
     del k6_h0
-    sort_ms = []
-    for x in k6_unsorted:
-        warm_up(lambda x=x: MKC.sort_paths(mesh_main, x))
-        _, rows = profiled(lambda x=x: [MKC.sort_paths(mesh_main, x) for _ in range(5)])
-        sort_ms.append(sum(e.self_device_time_total for e in device_rows(rows)) / 1e3 / 5)
+    # the sort between depths, per op on the device (torch.profiler)
+    sort_ms, sort_ops = [], {}
+    for keys in k6_keys:
+        warm_up(lambda k=keys: MKC.sort_paths(k))
+        _, rows = profiled(lambda k=keys: [MKC.sort_paths(k) for _ in range(5)])
+        dev_r = device_rows(rows)
+        sort_ms.append(sum(e.self_device_time_total for e in dev_r) / 1e3 / 5)
+        for e in dev_r:
+            cnt, t = sort_ops.get(e.key, (0, 0.0))
+            sort_ops[e.key] = (cnt + e.count, t + e.self_device_time_total / 1e3)
+    # what path regeneration can recover: the lane-bounces that warps of
+    # one path per thread (32 consecutive paths of the launch) keep busy,
+    # from each path's bounces in the recorded pass (alive at a depth's
+    # start: one bounce)
+    bounces = sum((x.view(torch.int32)[:, MKC.ALIVE] != 0).to(torch.int32) for x in k6_in)
+    warp_max = bounces.reshape(-1, 32).amax(1)
+    lane_busy = float(bounces.sum()) / float(32 * warp_max.sum())
     ms["bounce"] = sum(k6_ms) / len(k6_ms)
-    call_ms["bounce"] = cuda_ms(lambda: MKC.bounce_fused(mesh_main, k6_in[1].clone(), 1), 5)
+    call_ms["bounce"] = cuda_ms(
+        lambda: MKC.bounce_fused(mesh_main, k6_in[1].clone(), 1, perm=k6_perm[1]), 5)
     k6_plain_state = k6_in[1].clone()
     plain_ms["bounce"] = cuda_ms(lambda: MKC.bounce_plain(mesh_main, k6_plain_state.clone(), 1),
                                  1, reps=1)
@@ -1186,15 +1269,15 @@ def main() -> int:
     hint = hhits0 * halton_int_ops(R, h0_dims)
     any_tests = first_occluder_tests(ro1, rd1, v0, e0, e1, tm1)
     # traversals: traverse_packed_ref over BOUND_SAMPLE rays of each
-    # recorded launch, and over every 32nd path of the fused BVH launch
+    # recorded launch, and over every 512th path of the fused BVH launches
+    # (1,048,576 paths, hash and Halton)
     work_c = [traversal_work(mesh_main, o, d) for o, d in rec["closest"]]
     work_a = [traversal_work(mesh_main, o, d, "any", tm) for o, d, tm in rec["any"]]
-    step = n1 // BOUND_SAMPLE
+    fb_pick = torch.arange(0, n_pass, n_pass // BOUND_SAMPLE, device=dev)
     bhits, bslabs, btests = (sum(x) for x in bvh_fused_work(
-        MK, mesh, cfg_plain, mpx1[::step], mpy1[::step], ms1[::step], mo1[::step], md1[::step]
-    ))
-    bh_work = bvh_fused_work(MK, mesh, cfg_hplain, mhpx1[::step], mhpy1[::step], mhs1[::step],
-                             mho1[::step], mhd1[::step])
+        MK, mesh_main, cfg_fkw, *(x[fb_pick] for x in (fpx, fpy, fsample, fo, fd))))
+    bh_work = bvh_fused_work(MK, mesh_main, cfg_hplain,
+                             *(x[fb_pick] for x in sorted_rays["halton"]))
     bhh, bhslabs, bhtests = (sum(x) for x in bh_work)
     # kernel 6: the work per depth of BOUND_SAMPLE paths of the pass, drawn
     # with a fixed seed, scaled to its 1,048,576
@@ -1234,24 +1317,28 @@ def main() -> int:
     b_bvh_closest = bound(sum(w[0] for w in work_c) / len(work_c), n_bvh * 32 + bvh_bytes)
     b_bvh_any = bound(sum(w[0] for w in work_a) / len(work_a), n_bvh * 32 + bvh_bytes)
     b_fused_h = bound(htests * MT_FLOPS + hhits * SHADE_FLOPS, n1 * (24 + 12 + 12), hint)
-    scale = n1 / len(mpx1[::step])
-    flops_fbvh = scale * (bslabs * SLAB_FLOPS + btests * MT_FLOPS + bhits * SHADE_FLOPS)
+    # kernels 5 and 6 read the compact tables once: 256 B nodes and 48 B
+    # rows, the 4 B material ids and the shading tables
+    scale = n_pass / len(fb_pick)
+    cbvh_bytes = 4 * (mesh_main.bvh.nodes.numel() + mesh_main.tri_rows.numel())
     shade_bytes = mesh.num_triangles * 4 + mesh.shade_tables.numel() * 4
-    b_fused_bvh = bound(flops_fbvh, n1 * 48 + bvh_bytes + shade_bytes)
+    flops_fbvh = scale * (bslabs * SLAB_FLOPS + btests * MT_FLOPS + bhits * SHADE_FLOPS)
+    b_fused_bvh = bound(flops_fbvh, n_pass * 48 + cbvh_bytes + shade_bytes)
     flops_fbvh_h = scale * (bhslabs * SLAB_FLOPS + bhtests * MT_FLOPS + bhh * SHADE_FLOPS)
     hint_bvh = scale * bh_work[0][0] * halton_int_ops(R, h0_dims)
-    b_fused_bvh_h = bound(flops_fbvh_h, n1 * 48 + bvh_bytes + shade_bytes, hint_bvh)
-    # kernel 6 per depth: live paths read 20 planes and write 17, dead paths
-    # read their flag; the node, triangle and shading tables once
+    b_fused_bvh_h = bound(flops_fbvh_h, n_pass * 48 + cbvh_bytes + shade_bytes, hint_bvh)
+    # kernel 6 per depth: live paths read 20 words of their row and write 17
+    # and a key, dead paths read their flag and write a key, each reads its
+    # row index after depth 0; the tables once
     k6_scale = n_pass / BOUND_SAMPLE
-    k6_bounds = [bound(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS),
-                       live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD + bvh_bytes
-                       + shade_bytes)
-                 for hi, sl, te, live in zip(*k6_work, k6_live)]
+    k6_b = [live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD
+            + (n_pass * K6_BYTES_PERM if dep else 0) + cbvh_bytes + shade_bytes
+            for dep, live in enumerate(k6_live)]
+    k6_bounds = [bound(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS), b)
+                 for hi, sl, te, b in zip(*k6_work, k6_b)]
     k6_flops = sum(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS)
                    for hi, sl, te in zip(*k6_work))
-    k6_bytes = sum(live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD + bvh_bytes
-                   + shade_bytes for live in k6_live)
+    k6_bytes = sum(k6_b)
     b_bounce = (sum(b[0] for b in k6_bounds) / DEPTH, bound(k6_flops, k6_bytes)[1])
 
     launches_main = {
@@ -1269,8 +1356,9 @@ def main() -> int:
               "bvh_closest": MESH_SPP, "bvh_anyhit": MESH_SPP, "fused_bvh": MESH_SPP,
               "fused_halton": SPP_FUSED, "fused_bvh_halton": MESH_SPP, "bounce": 2 * MESH_SPP}
     rays_of = {"fused": n1, "closest": n1, "anyhit": n1, "bvh_closest": n_bvh,
-               "bvh_anyhit": n_bvh, "fused_bvh": n1, "fused_halton": n1, "fused_bvh_halton": n1,
-               "bounce": n_pass}
+               "bvh_anyhit": n_bvh, "fused_bvh": n_pass, "fused_halton": n1,
+               "fused_bvh_halton": n_pass, "bounce": n_pass}
+    plain_rays = dict(rays_of, fused_bvh=n1, fused_bvh_halton=n1)
     csrc = "cuda_optix_pathtracing_tpu_torch/csrc/"
     meta = {
         "fused": ("pt_fused_bruteforce", csrc + "megakernel.cu",
@@ -1297,7 +1385,8 @@ def main() -> int:
     for key, (name, src, repl, (bms, bby)) in meta.items():
         per_spp = launches_main[key] / spp_of[key]
         print(f"  {name}: {ms[key]:.4f} ms/launch on the device at {rays_of[key]} rays "
-              f"({call_ms[key]:.4f} ms per wrapper call), plain {plain_ms[key]:.4f} ms, "
+              f"({call_ms[key]:.4f} ms per wrapper call), plain {plain_ms[key]:.4f} ms at "
+              f"{plain_rays[key]}, "
               f"{per_spp:g} launches/spp, bound {bms:.4f} ms ({bby}), library none {tag}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -1311,20 +1400,28 @@ def main() -> int:
     print(f"  fused Halton kernel work: {hhits} hits shaded ({hhits0} at depth 0), {htests} "
           f"tests ({(htests * MT_FLOPS + hhits * SHADE_FLOPS) / n1:.0f} flop/path), Halton dims "
           f"{h0_dims} at depth 0: {hint / n1:.0f} integer operations/path; BVH mode "
-          f"{flops_fbvh_h / n1:.0f} flop and {hint_bvh / n1:.0f} integer operations/path")
-    print(f"  ms per launch at {n1} paths, Halton against hash: brute force "
-          f"{ms['fused_halton']:.4f} vs {ms['fused']:.4f}, BVH {ms['fused_bvh_halton']:.4f} vs "
-          f"{ms['fused_bvh']:.4f} {tag}")
+          f"{flops_fbvh_h / n_pass:.0f} flop and {hint_bvh / n_pass:.0f} integer operations/path")
+    print(f"  ms per launch, Halton against hash: brute force at {n1} paths "
+          f"{ms['fused_halton']:.4f} vs {ms['fused']:.4f}, BVH at {n_pass} "
+          f"{ms['fused_bvh_halton']:.4f} vs {ms['fused_bvh']:.4f} {tag}")
+    print(f"  paths of the pass: {float(bounces.float().mean()):.3f} bounces each of {DEPTH}; "
+          f"warps of one path per thread would keep {100 * lane_busy:.1f} % of their "
+          f"lane-bounces busy (regeneration: at most {1 / lane_busy:.3f}x)")
+    n_sorts = len(k6_keys)
+    print(f"  the sort between depths, per op on the device (mean per sort of {n_pass} int32 "
+          f"keys over the {n_sorts} sorts of a pass, 5 each): " + "; ".join(
+              f"{key[:70]} x{cnt / (5 * n_sorts):g} {t / (5 * n_sorts):.4f} ms"
+              for key, (cnt, t) in sorted(sort_ops.items(), key=lambda kv: -kv[1][1])) + f" {tag}")
     for dep in range(DEPTH):
         hi, sl, te = (w[dep] for w in k6_work)
-        sort_txt = f"; sort + gather before it {sort_ms[dep - 1]:.4f} ms" if dep else ""
+        sort_txt = f"; sort before it {sort_ms[dep - 1]:.4f} ms" if dep else ""
         print(f"  pt_bounce_bvh depth {dep}: {k6_ms[dep]:.4f} ms on the device, {k6_live[dep]} of "
               f"{n_pass} paths live, bound {k6_bounds[dep][0]:.4f} ms ({k6_bounds[dep][1]}); "
               f"per sampled path {hi / BOUND_SAMPLE:.3f} hits, "
               f"{sl / BOUND_SAMPLE:.1f} boxes, {te / BOUND_SAMPLE:.1f} triangles{sort_txt} {tag}")
     print(f"  pt_bounce_bvh per pass: {sum(k6_ms):.4f} ms (Halton depth 0: {k6_halton0_ms:.4f} "
-          f"ms); sort + gather {sum(sort_ms):.4f} ms; pt_fused_bvh per launch of {n_pass}: see the "
-          f"traced render below {tag}")
+          f"ms); sorts {sum(sort_ms):.4f} ms; pt_fused_bvh per launch of {n_pass}: "
+          f"{ms['fused_bvh']:.4f} ms (Halton {ms['fused_bvh_halton']:.4f}) {tag}")
     busy_s, per_k_s, n_launch_s, _, _ = tr_sorted
     wall_s = 1e3 / (np.mean(route_rep["sorted"]) * 1e6 / (W * H))
     print(f"  routes on the same {n_pass} rays, in turns: sorted "
@@ -1340,10 +1437,10 @@ def main() -> int:
         print(f"  bvh {label} work per depth (sample of {BOUND_SAMPLE} rays of {n_bvh}): "
               + "; ".join(f"{w[1]:.1f} boxes, {w[2]:.1f} triangles, "
                           f"{w[0] / n_bvh:.0f} flop per ray" for w in work))
-    k = len(mpx1[::step])
-    print(f"  fused BVH kernel work (every {step}th of {n1} paths, {k}): {bhits / k:.2f} hits, "
-          f"{bslabs / k:.1f} boxes, {btests / k:.1f} triangles per path "
-          f"({flops_fbvh / n1:.0f} flop/path)")
+    k = len(fb_pick)
+    print(f"  fused BVH kernel work (every {n_pass // k}th of its {n_pass}-path launch, {k}): "
+          f"{bhits / k:.2f} hits, {bslabs / k:.1f} boxes, {btests / k:.1f} triangles per path "
+          f"({flops_fbvh / n_pass:.0f} flop/path)")
     print(f"  render fused {W}x{H}x{SPP_FUSED} depth {DEPTH}: {dt_on:.3f} s, "
           f"{mpaths:.2f} Mpaths/s (host clock around render()); "
           f"{RENDER_REPEATS} more renders: "

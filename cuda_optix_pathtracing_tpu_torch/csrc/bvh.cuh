@@ -1,6 +1,7 @@
-// Per-ray stack traversal of the packed 8-wide BVH (ops/bvh.py layout),
-// shared by the traversal kernels (bvh.cu) and the fused path-tracing
-// kernel's BVH mode (megakernel.cu).
+// Per-ray stack traversal of the packed 8-wide BVH (ops/bvh.py layout) for
+// the traversal kernels (bvh.cu). The fused path-tracing kernels
+// (megakernel.cu) walk the compact copy of the tree instead
+// (bvh_compact.cuh).
 //
 // Computes what the TPU's tile_traverse (ops/bvh_pallas.py) computes: the
 // closest hit T_MIN < t < t_cap over all triangles, or whether any
@@ -22,8 +23,7 @@
 //
 // Nodes (box 512 B and meta 64 B per node) and triangles are read from
 // global memory through the read-only path; the tables of a mesh scene
-// (~0.9 MB of triangles at 16k triangles) exceed a block's shared memory
-// but sit in the 50 MB L2.
+// (~0.9 MB of triangles at 16k triangles) sit in the 50 MB L2.
 #pragma once
 
 #include "common.cuh"

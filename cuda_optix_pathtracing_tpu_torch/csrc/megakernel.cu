@@ -5,17 +5,16 @@
 // Replaces the TPU kernel cuda_optix_pathtracing_tpu/models/megakernel_pallas.py
 // _pt_kernel, launched through pl.pallas_call:
 // - pt_fused_bruteforce <- trace_paths_fused, use_bvh=False (the call at
-//   megakernel_pallas.py:1574); pt_fused_bvh <- use_bvh=True (:1552,
-//   tile_traverse "attrs" and "any" inside). One kernel template,
-//   pt_fused_kernel<Geo, Smp>, serves both: its geometry policy (BruteGeo,
-//   BvhGeo) answers the closest hit and the shadow query, its sampler
+//   megakernel_pallas.py:1574): pt_fused_kernel<BruteGeo, Smp>;
+//   pt_fused_bvh <- use_bvh=True (:1552, tile_traverse "attrs" and "any"
+//   inside): pt_fused_bvh_kernel<Smp>. The geometry policy (BruteGeo,
+//   BvhGeo) answers the closest hit and the shadow query, the sampler
 //   policy (HashRng; HaltonRng for sampler="halton", halton_1d:309) the
 //   random numbers.
 // - pt_bounce_bvh <- trace_paths_fused_sorted, single-depth mode (depth0,
-//   the call at :1725): one bounce per launch over a path state in
-//   structure-of-arrays planes, so the host can re-sort paths between
-//   depths.
-// Both run the same bounce() below. It computes the estimator of the plain
+//   the call at :1725): one bounce per launch over a path state of one row
+//   per path, so the host can re-sort paths between depths.
+// All run the same bounce() below. It computes the estimator of the plain
 // PyTorch integrator (models/megakernel.py bounce_step, the XLA
 // integrator's twin): Moller-Trumbore closest hit, material fetch,
 // Oren-Nayar multiscatter / Lambert / GGX dielectric (reflection,
@@ -47,24 +46,32 @@
 // not carried over; the winner's barycentrics are kept during the sweep
 // instead.
 //
-// BVH mode: the closest hit and the shadow ray walk the packed 8-wide BVH
-// per thread (bvh_trace in bvh.cuh); nodes and triangles stay in global
-// memory (~1.1 MB at 16k triangles, L2-resident) and only the shading
-// tables go to shared memory. The winner's (u, v) come from the
-// traversal, its vertices from its packed row and its material from
-// tri_mat, which is what the TPU kernel's "attrs" mode gathers during its
-// sweep. Still bound by arithmetic at the data's own work (node pops and
-// leaf tests per bounce), held back by divergence: paths of a warp
-// decohere after the first bounce and walk different subtrees.
+// BVH mode: the closest hit and the shadow ray walk the compact 8-wide BVH
+// per thread (cbvh_trace in bvh_compact.cuh: 256 B nodes, a 32 B stack of
+// one entry per level, leaves cut at their last real row), both read
+// through the read-only path: the mesh leg's 432 nodes (110.6 KB) stay in
+// L1, the (Tp, 12) triangle rows (1.1 MB at 16k triangles) in L2. Only
+// the shading tables go to shared memory. The winner's (u, v) come from the
+// traversal, its vertices from its row and its material from tri_mat,
+// which is what the TPU kernel's "attrs" mode gathers during its sweep.
+// Bound by arithmetic at the data's own work (node expansions and leaf
+// tests per bounce). Paths end at different depths (3.4 bounces of 5 on
+// the mesh leg), so a warp of one path per thread idles a third of its
+// lanes; the kernel regenerates paths instead: persistent blocks whose
+// lanes take a new path index from a counter as soon as theirs ends.
 //
-// The single-bounce kernel answers that divergence the wavefront way: the
-// host sorts the paths by direction octant and origin Morton code before
-// every depth, so a warp's paths start near each other and head the same
-// way. Per launch it reads 20 planes of 4 bytes and writes 17 per live
-// path (148 B), against ~1.7 kflop of traversal and shading per bounce:
-// bytes bound it at depth 0 on the mesh Cornell box. A dead path returns
-// at once and leaves its planes untouched.
-#include "bvh.cuh"
+// The single-bounce kernel answers the divergence of decohered paths the
+// wavefront way: it writes each path's sort key (direction octant, origin
+// Morton code) for the next depth, the host sorts the keys, and the next
+// launch runs the paths in that order through the permutation, so a
+// warp's paths start near each other and head the same way. The state
+// stays in slot order, one 96 B row per path, read and written in place:
+// a live path reads 80 B and writes 68 B and its key, against ~1.7 kflop
+// of traversal and shading per bounce, so bytes bound it at depth 0 on the
+// mesh Cornell box. A dead path reads its flag and writes its key.
+#include <cooperative_groups.h>
+
+#include "bvh_compact.cuh"
 
 #define INV_PI_F 0.318309886183790671538f
 #define DELTA_ALPHA 1e-3f
@@ -777,27 +784,27 @@ struct BruteGeo {
   __device__ int material(int i) const { return (int)mid[i]; }
 };
 
-// BVH: per-thread traversal of the packed tables in global memory.
+// BVH: per-thread traversal of the compact tables (bvh_compact.cuh).
 struct BvhGeo {
-  BvhTables bt;
+  CompactBvh bv;
   const int* __restrict__ tri_mat;  // (Tp,) packed-BVH order
-  __host__ __device__ int smem_floats() const { return 0; }
-  __device__ void bind(const float*) {}
   __device__ bool closest(float3 o, float3 d, float& tb, float& ub, float& vb,
                           int& ib) const {
     ub = vb = 0.0f;
     ib = 0;
-    return bvh_trace<false>(bt, o, d, BIG_T, tb, ub, vb, ib);
+    return cbvh_trace<false>(bv, o, d, BIG_T, tb, ub, vb, ib);
   }
   __device__ bool occluded(float3 o, float3 d, float t_max) const {
     float t, u, v;
     int row;
-    return bvh_trace<true>(bt, o, d, t_max, t, u, v, row);
+    return cbvh_trace<true>(bv, o, d, t_max, t, u, v, row);
   }
   __device__ void triangle(int i, float3& p0, float3& e0, float3& e1) const {
-    p0 = ldg3(bt.v0, i);
-    e0 = ldg3(bt.e0, i);
-    e1 = ldg3(bt.e1, i);
+    const float4* r = bv.rows + (size_t)i * CBVH_ROW_F4;
+    const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+    p0 = f3(a.x, a.y, a.z);
+    e0 = f3(b.x, b.y, b.z);
+    e1 = f3(c.x, c.y, c.z);
   }
   __device__ int material(int i) const { return __ldg(tri_mat + i); }
 };
@@ -937,7 +944,8 @@ __device__ __forceinline__ bool bounce(const Geo& g, const Smp& rng, const Shade
 // the kernels
 // ---------------------------------------------------------------------------
 
-// The whole path loop per thread (TPU kernel: _pt_kernel, depth0=None).
+// The whole path loop per thread, brute force (TPU kernel: _pt_kernel,
+// depth0=None).
 template <class Geo, class Smp>
 __global__ void __launch_bounds__(kBlock)
     pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
@@ -946,7 +954,7 @@ __global__ void __launch_bounds__(kBlock)
                     int n, int n_mats, int n_lights, int n_em, int max_depth,
                     int rr_start_depth, uint32_t seed, int qmc_dims,
                     float* __restrict__ out) {
-  // shared layout: geometry rows (brute force only) | shading tables
+  // shared layout: geometry rows | shading tables
   extern __shared__ float smem[];
   const int n_geo = geo.smem_floats();
   block_copy(smem, tables, n_geo + shade_floats(n_mats, n_lights, n_em));
@@ -966,47 +974,154 @@ __global__ void __launch_bounds__(kBlock)
   store3(out, r, s.radiance);
 }
 
-// One bounce per launch over a path state in structure-of-arrays planes
-// (TPU kernel: _pt_kernel, single-depth mode, trace_paths_fused_sorted).
-// st is (P, n) 32-bit planes, updated in place (each thread owns its
-// column): 0-2 o, 3-5 d, 6-8 beta, 9-11 radiance (f32); 12 alive, 13
-// inside (i32); 14 eta_scale, 15 prev_pdf (f32); 16 prev_delta (i32); 17
-// px, 18 py, 19 sample (u32). A dead path's planes are left as they were.
+// ---- the BVH kernels: persistent blocks over the compact tables ----------
+
+// 256 threads a block and at most 128 registers a thread (two blocks, 16
+// warps, per SM): the bounce holds the path, the traversal's ray and stack
+// and the shading state at once, and fits in 128 without spilling.
+constexpr int kBvhBlock = 256;
+constexpr int kBvhMinBlocks = 2;
+#define DEAD_KEY32 0x7FFFFFFF  // a dead path's sort key: after every live one
+
+// The next path index for each calling lane: one atomicAdd per converged
+// group of lanes on the launch's counter (zeroed by the wrapper).
+__device__ __forceinline__ int next_path(int* counter) {
+  namespace cg = cooperative_groups;
+  const cg::coalesced_group grp = cg::coalesced_threads();
+  int base = 0;
+  if (grp.thread_rank() == 0) base = atomicAdd(counter, (int)grp.size());
+  return grp.shfl(base, 0) + (int)grp.thread_rank();
+}
+
+// The whole path loop, BVH mode, with path regeneration: about as many
+// blocks as fit on the card at once, each lane taking a path index from
+// the counter, running its bounces and taking the next index as soon as
+// its path ends, so the warp stays full until the counter runs out. One
+// loop iteration is one bounce of whichever path a lane holds: the lanes
+// of a warp run bounce() together whatever their paths' depths. A path's
+// radiance depends on its index alone (its ray, keys and depth-keyed
+// random numbers), so the output is that of one thread per path.
 template <class Smp>
-__global__ void __launch_bounds__(kBlock)
-    pt_bounce_kernel(BvhGeo g, float* __restrict__ st, const float* __restrict__ tables,
-                     int n, int n_mats, int n_lights, int n_em, int depth,
-                     int rr_start_depth, uint32_t seed, int qmc_dims) {
+__global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
+    pt_fused_bvh_kernel(BvhGeo g, const float* __restrict__ o_in,
+                        const float* __restrict__ d_in, const uint32_t* __restrict__ px,
+                        const uint32_t* __restrict__ py, const uint32_t* __restrict__ sample,
+                        const float* __restrict__ shade, int n, int n_mats, int n_lights,
+                        int n_em, int max_depth, int rr_start_depth, uint32_t seed,
+                        int qmc_dims, int* __restrict__ counter, float* __restrict__ out) {
   extern __shared__ float smem[];
-  block_copy(smem, tables, shade_floats(n_mats, n_lights, n_em));
+  block_copy(smem, shade, shade_floats(n_mats, n_lights, n_em));
   __syncthreads();
   const Shade sh(smem, n_mats, n_lights, n_em);
+  PathRegs s{};
+  int r = 0, depth = 0;
+  bool fetch = true;
+  while (true) {
+    if (fetch) {
+      r = next_path(counter);
+      if (r >= n) break;
+      // the camera counts as delta
+      s = PathRegs{load3(o_in, r), load3(d_in, r), f3(1.f, 1.f, 1.f), f3(0.f, 0.f, 0.f),
+                   1.0f, 0.0f, false, true};
+      depth = 0;
+      if (max_depth <= 0) {
+        store3(out, r, s.radiance);
+        continue;
+      }
+    }
+    const Smp rng(px[r], py[r], sample[r], seed, qmc_dims);
+    const bool alive = bounce(g, rng, sh, depth, rr_start_depth, s);
+    fetch = !alive || ++depth >= max_depth;
+    if (fetch) store3(out, r, s.radiance);
+  }
+}
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  int* __restrict__ sti = reinterpret_cast<int*>(st);
-  const size_t N = (size_t)n;
-  if (!sti[12 * N + r]) return;
-  const uint32_t* stu = reinterpret_cast<const uint32_t*>(st);
-  const Smp rng(stu[17 * N + r], stu[18 * N + r], stu[19 * N + r], seed, qmc_dims);
-  auto ld3 = [&](int p) { return f3(st[p * N + r], st[(p + 1) * N + r], st[(p + 2) * N + r]); };
-  PathRegs s{ld3(0), ld3(3), ld3(6), ld3(9), st[14 * N + r], st[15 * N + r],
-             sti[13 * N + r] != 0, sti[16 * N + r] != 0};
-  const bool alive = bounce(g, rng, sh, depth, rr_start_depth, s);
-  auto st3 = [&](int p, float3 v) {
-    st[p * N + r] = v.x;
-    st[(p + 1) * N + r] = v.y;
-    st[(p + 2) * N + r] = v.z;
-  };
-  st3(0, s.o);
-  st3(3, s.d);
-  st3(6, s.beta);
-  st3(9, s.radiance);
-  sti[12 * N + r] = alive;
-  sti[13 * N + r] = s.inside;
-  st[14 * N + r] = s.eta_scale;
-  st[15 * N + r] = s.prev_pdf;
-  sti[16 * N + r] = s.prev_delta;
+// Morton spread of 10 bits to every 3rd position (ops/raysort.py _part3)
+__device__ __forceinline__ uint32_t part3(uint32_t v) {
+  v &= 0x3FFu;
+  v = (v | (v << 16)) & 0x030000FFu;
+  v = (v | (v << 8)) & 0x0300F00Fu;
+  v = (v | (v << 4)) & 0x030C30C3u;
+  v = (v | (v << 2)) & 0x09249249u;
+  return v;
+}
+
+// ops/raysort.py ray_sort_key of a live ray (7 Morton bits per axis) as an
+// int32: [30:28] direction octant, the origin's Morton code top-aligned
+// below it, bit 31 clear. ext = clamp(hi - lo, min=1e-6).
+__device__ __forceinline__ int ray_sort_key32(float3 o, float3 d, float3 lo, float3 ext) {
+  const uint32_t oct = (d.x < 0.0f ? 1u : 0u) | (d.y < 0.0f ? 2u : 0u) | (d.z < 0.0f ? 4u : 0u);
+  const uint32_t qx = (uint32_t)(clamp01((o.x - lo.x) / ext.x) * 127.0f);
+  const uint32_t qy = (uint32_t)(clamp01((o.y - lo.y) / ext.y) * 127.0f);
+  const uint32_t qz = (uint32_t)(clamp01((o.z - lo.z) / ext.z) * 127.0f);
+  const uint32_t m = part3(qx) | (part3(qy) << 1) | (part3(qz) << 2);
+  return (int)((oct << 28) | (m << 7));
+}
+
+// One bounce per launch over the path state (TPU kernel: _pt_kernel,
+// single-depth mode, trace_paths_fused_sorted). st is (n, 24) 32-bit rows
+// in slot order, 96 B = 6 float4s per path: 0-2 o, 3-5 d, 6-8 beta, 9-11
+// radiance (f32); 12 alive, 13 inside (i32); 14 eta_scale, 15 prev_pdf
+// (f32); 16 prev_delta (i32); 17 px, 18 py, 19 sample (u32); 20 slot; 21-23
+// padding. Thread t of the launch runs row perm[t] (t itself without a
+// perm), reading it as 5 float4 loads and writing it back as 4 float4s and
+// one word in place, so the state is never copied; then it writes the
+// row's sort key for the next depth to keys[row] (DEAD_KEY32 for a path
+// that is or becomes dead). A dead path's row is left as it was.
+// Persistent blocks as in the fused kernel, each warp taking 32
+// consecutive t at a time from the counter (chunks of a whole block ran
+// faster on an H100 80GB HBM3 at 700 W but spilled the Halton
+// instantiation, PERF.md).
+template <class Smp>
+__global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
+    pt_bounce_kernel(BvhGeo g, float* __restrict__ st,
+                     const int64_t* __restrict__ perm, int* __restrict__ keys,
+                     const float* __restrict__ bounds, const float* __restrict__ shade, int n,
+                     int n_mats, int n_lights, int n_em, int depth, int rr_start_depth,
+                     uint32_t seed, int qmc_dims, int* __restrict__ counter) {
+  extern __shared__ float smem[];
+  block_copy(smem, shade, shade_floats(n_mats, n_lights, n_em));
+  __syncthreads();
+  const Shade sh(smem, n_mats, n_lights, n_em);
+  const int lane = threadIdx.x & 31;
+  float4* __restrict__ st4 = reinterpret_cast<float4*>(st);
+  while (true) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, 32);
+    base = __shfl_sync(0xFFFFFFFFu, base, 0);
+    if (base >= n) break;
+    const int t = base + lane;
+    if (t >= n) continue;
+    const int row = perm ? (int)perm[t] : t;
+    const float4* p = st4 + (size_t)row * 6;
+    const float4 q3 = p[3];  // alive, inside, eta_scale, prev_pdf
+    if (__float_as_int(q3.x) == 0) {
+      keys[row] = DEAD_KEY32;
+      continue;
+    }
+    const float4 q0 = p[0], q1 = p[1], q2 = p[2], q4 = p[4];
+    PathRegs s{f3(q0.x, q0.y, q0.z), f3(q0.w, q1.x, q1.y), f3(q1.z, q1.w, q2.x),
+               f3(q2.y, q2.z, q2.w), q3.z, q3.w, __float_as_int(q3.y) != 0,
+               __float_as_int(q4.x) != 0};
+    const Smp rng(__float_as_uint(q4.y), __float_as_uint(q4.z), __float_as_uint(q4.w), seed,
+                  qmc_dims);
+    const bool alive = bounce(g, rng, sh, depth, rr_start_depth, s);
+    float4* w = st4 + (size_t)row * 6;
+    w[0] = make_float4(s.o.x, s.o.y, s.o.z, s.d.x);
+    w[1] = make_float4(s.d.y, s.d.z, s.beta.x, s.beta.y);
+    w[2] = make_float4(s.beta.z, s.radiance.x, s.radiance.y, s.radiance.z);
+    w[3] = make_float4(__int_as_float(alive ? 1 : 0), __int_as_float(s.inside ? 1 : 0),
+                       s.eta_scale, s.prev_pdf);
+    reinterpret_cast<int*>(w)[16] = s.prev_delta ? 1 : 0;
+    int key = DEAD_KEY32;
+    if (alive) {  // the sort box, read here so that it is not live across the bounce
+      const float3 lo = f3(bounds[0], bounds[1], bounds[2]);
+      const float3 ext = f3(fmaxf(bounds[3] - lo.x, 1e-6f), fmaxf(bounds[4] - lo.y, 1e-6f),
+                            fmaxf(bounds[5] - lo.z, 1e-6f));
+      key = ray_sort_key32(s.o, s.d, lo, ext);
+    }
+    keys[row] = key;
+  }
 }
 
 template <class K>
@@ -1051,15 +1166,49 @@ int launch_sampler(int sampler, const Geo& geo, const float* o, const float* d,
   return (int)cudaErrorInvalidValue;
 }
 
+// The grid of a persistent BVH kernel over n items: the blocks that fit
+// on the card at once at smem bytes each, and no more than n needs.
+template <class K>
+int persistent_grid(K kernel, size_t smem, int n, int& grid) {
+  if (const int err = set_smem(kernel, smem)) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBvhBlock, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const int need = (n + kBvhBlock - 1) / kBvhBlock;
+  grid = sms * per_sm < need ? sms * per_sm : need;
+  return 0;
+}
+
 template <class Smp>
-int launch_bounce(const BvhGeo& geo, float* st, const float* shade, int n, int n_mats,
-                  int n_lights, int n_em, int depth, int rr_start_depth, uint32_t seed,
-                  int qmc_dims, void* stream) {
+int launch_fused_bvh(const BvhGeo& geo, const float* o, const float* d,
+                     const uint32_t* px, const uint32_t* py, const uint32_t* sample,
+                     const float* shade, int n, int n_mats, int n_lights, int n_em,
+                     int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims,
+                     int* counter, float* out, void* stream) {
   const size_t smem = sizeof(float) * (size_t)shade_floats(n_mats, n_lights, n_em);
-  if (const int err = set_smem(pt_bounce_kernel<Smp>, smem)) return err;
-  const int grid = (n + kBlock - 1) / kBlock;
-  pt_bounce_kernel<Smp><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      geo, st, shade, n, n_mats, n_lights, n_em, depth, rr_start_depth, seed, qmc_dims);
+  int grid = 0;
+  if (const int err = persistent_grid(pt_fused_bvh_kernel<Smp>, smem, n, grid)) return err;
+  pt_fused_bvh_kernel<Smp><<<grid, kBvhBlock, smem, (cudaStream_t)stream>>>(
+      geo, o, d, px, py, sample, shade, n, n_mats, n_lights, n_em, max_depth,
+      rr_start_depth, seed, qmc_dims, counter, out);
+  return (int)cudaGetLastError();
+}
+
+template <class Smp>
+int launch_bounce(const BvhGeo& geo, float* st, const int64_t* perm,
+                  int* keys, const float* bounds, const float* shade, int n, int n_mats,
+                  int n_lights, int n_em, int depth, int rr_start_depth, uint32_t seed,
+                  int qmc_dims, int* counter, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)shade_floats(n_mats, n_lights, n_em);
+  int grid = 0;
+  if (const int err = persistent_grid(pt_bounce_kernel<Smp>, smem, n, grid)) return err;
+  pt_bounce_kernel<Smp><<<grid, kBvhBlock, smem, (cudaStream_t)stream>>>(
+      geo, st, perm, keys, bounds, shade, n, n_mats, n_lights, n_em, depth,
+      rr_start_depth, seed, qmc_dims, counter);
   return (int)cudaGetLastError();
 }
 
@@ -1083,34 +1232,50 @@ extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_
                         n_em, max_depth, rr_start_depth, seed, qmc_dims, out, stream);
 }
 
-// BVH: shade = the shading tables (pack_shade_tables); box (M,128) f32,
-// meta (M*16) i32; v0, e0, e1 (Tp,3) and tri_mat (Tp,) i32 in packed-BVH
-// order.
+// BVH: shade = the shading tables (pack_shade_tables); nodes (M, 64)
+// compact nodes (ops/bvh.py pack_nodes); rows (Tp, 12) f32 triangle rows
+// and tri_mat (Tp,) i32 in packed-BVH order; counter one zeroed int32.
 extern "C" int pt_fused_bvh(const float* o, const float* d, const uint32_t* px,
                             const uint32_t* py, const uint32_t* sample,
-                            const float* shade, const float* box, const int* meta,
-                            const float* v0, const float* e0, const float* e1,
-                            const int* tri_mat, int n, int n_mats, int n_lights, int n_em,
-                            int max_depth, int rr_start_depth, int sampler, uint32_t seed,
-                            int qmc_dims, float* out, void* stream) {
-  const BvhGeo geo{BvhTables{box, meta, v0, e0, e1}, tri_mat};
-  return launch_sampler(sampler, geo, o, d, px, py, sample, shade, n, n_mats, n_lights,
-                        n_em, max_depth, rr_start_depth, seed, qmc_dims, out, stream);
+                            const float* shade, const float* nodes, const float* rows,
+                            const int* tri_mat, int n, int n_mats,
+                            int n_lights, int n_em, int max_depth, int rr_start_depth,
+                            int sampler, uint32_t seed, int qmc_dims, int* counter,
+                            float* out, void* stream) {
+  const BvhGeo geo{CompactBvh{reinterpret_cast<const float4*>(nodes),
+                              reinterpret_cast<const float4*>(rows)},
+                   tri_mat};
+  if (sampler == 0)
+    return launch_fused_bvh<HashRng>(geo, o, d, px, py, sample, shade, n, n_mats,
+                                     n_lights, n_em, max_depth, rr_start_depth, seed,
+                                     qmc_dims, counter, out, stream);
+  if (sampler == 1)
+    return launch_fused_bvh<HaltonRng>(geo, o, d, px, py, sample, shade, n, n_mats,
+                                       n_lights, n_em, max_depth, rr_start_depth, seed,
+                                       qmc_dims, counter, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// One bounce at `depth` over the (20, n) path-state planes st (layout at
-// pt_bounce_kernel), in place; the BVH tables as for pt_fused_bvh.
-extern "C" int pt_bounce_bvh(float* st, const float* shade, const float* box,
-                             const int* meta, const float* v0, const float* e0,
-                             const float* e1, const int* tri_mat, int n, int n_mats,
+// One bounce at `depth` over the (n, 24) path-state rows st (layout at
+// pt_bounce_kernel), in place, thread t on row perm[t] (perm (n,) int64,
+// or null for the identity); keys (n,) int32 receives each row's sort key;
+// bounds (2, 3) f32 the sort box; the BVH tables as for pt_fused_bvh.
+extern "C" int pt_bounce_bvh(float* st, const int64_t* perm, int* keys, const float* bounds,
+                             const float* shade, const float* nodes, const float* rows,
+                             const int* tri_mat, int n, int n_mats,
                              int n_lights, int n_em, int depth, int rr_start_depth,
-                             int sampler, uint32_t seed, int qmc_dims, void* stream) {
-  const BvhGeo geo{BvhTables{box, meta, v0, e0, e1}, tri_mat};
+                             int sampler, uint32_t seed, int qmc_dims, int* counter,
+                             void* stream) {
+  const BvhGeo geo{CompactBvh{reinterpret_cast<const float4*>(nodes),
+                              reinterpret_cast<const float4*>(rows)},
+                   tri_mat};
   if (sampler == 0)
-    return launch_bounce<HashRng>(geo, st, shade, n, n_mats, n_lights, n_em, depth,
-                                  rr_start_depth, seed, qmc_dims, stream);
+    return launch_bounce<HashRng>(geo, st, perm, keys, bounds, shade, n, n_mats,
+                                  n_lights, n_em, depth, rr_start_depth, seed, qmc_dims,
+                                  counter, stream);
   if (sampler == 1)
-    return launch_bounce<HaltonRng>(geo, st, shade, n, n_mats, n_lights, n_em, depth,
-                                    rr_start_depth, seed, qmc_dims, stream);
+    return launch_bounce<HaltonRng>(geo, st, perm, keys, bounds, shade, n, n_mats,
+                                    n_lights, n_em, depth, rr_start_depth, seed, qmc_dims,
+                                    counter, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,20 +1,23 @@
 """Wrappers of the path-tracing kernels (``csrc/megakernel.cu``), the
 counterpart of the reference ``models/megakernel_pallas.py``.
 
-``trace_paths_fused`` launches the fused kernel for CUDA tensors (one
-thread per path, the whole depth loop in registers, shading tables in
-shared memory) or raises; for CPU tensors it runs the kernel's plain
-version, ``models/megakernel.trace_paths`` with the plain intersection
-sweep. Two modes, one kernel template: a brute-force scene's triangles go
-to shared memory with the shading tables (``pt_fused_bruteforce``); a BVH
-scene's node tables and packed triangles stay in global memory and each
-thread walks the tree (``pt_fused_bvh``).
+``trace_paths_fused`` launches the fused kernel for CUDA tensors (the
+whole depth loop in registers, shading tables in shared memory) or
+raises; for CPU tensors it runs the kernel's plain version,
+``models/megakernel.trace_paths`` with the plain intersection sweep. Two
+modes: a brute-force scene's triangles go to shared memory with the
+shading tables, one thread per path (``pt_fused_bruteforce``); a BVH
+scene's compact node table (``scene.bvh.nodes``) and triangle rows
+(``scene.tri_rows``) are read from global memory through the read-only
+path, and persistent blocks regenerate paths, each lane taking the next
+path from a counter as soon as its own ends (``pt_fused_bvh``).
 
 ``trace_paths_fused_sorted`` is the depth-sorted fused wavefront of BVH
 scenes: one launch of the single-bounce kernel (``pt_bounce_bvh``, through
-``bounce_fused``) per depth over the path state in structure-of-arrays
-planes, the paths re-sorted by ``ray_sort_key`` between depths. Like the
-reference, ``render()`` never takes it.
+``bounce_fused``) per depth over a path state of one 96 B row per path
+that stays in slot order; the kernel writes each path's next sort key,
+one stable sort of the keys between depths gives the next launch its
+permutation. Like the reference, ``render()`` never takes it.
 
 ``trace_paths_fused.launches`` and ``bounce_fused.launches`` count kernel
 launches and nothing else.
@@ -33,11 +36,11 @@ import torch
 
 from ..ops import _cuda_build
 from ..ops import rng as R
-from ..ops.bvh import STACK_SIZE
+from ..ops.bvh import stack_fits
 from ..ops.bvh_cuda import check_bvh_scene
 from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR
 from ..ops.lights import AREA, PORTED_LIGHT_TYPES
-from ..ops.raysort import ray_sort_key
+from ..ops.raysort import ray_sort_key32
 from ..ops.shade_tables import EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
 
@@ -56,9 +59,10 @@ def _lib():
     lib = _cuda_build.load("megakernel")
     lib.pt_fused_bruteforce.argtypes = [_P] * 6 + [_I] * 7 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_fused_bruteforce.restype = _I
-    lib.pt_fused_bvh.argtypes = [_P] * 12 + [_I] * 6 + _SAMPLER_ARGS + [_P] * 2
+    bvh_args = [_P] * 3  # nodes, rows, tri_mat
+    lib.pt_fused_bvh.argtypes = [_P] * 6 + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 3
     lib.pt_fused_bvh.restype = _I
-    lib.pt_bounce_bvh.argtypes = [_P] * 8 + [_I] * 6 + _SAMPLER_ARGS + [_P]
+    lib.pt_bounce_bvh.argtypes = [_P] * 5 + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_bounce_bvh.restype = _I
     return lib
 
@@ -85,8 +89,8 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     reference ``pallas_megakernel_supported``: either sampler; the pixel
     filter runs outside the kernel and is not checked. The reference
     refuses BVH scenes whose node meta table exceeds 255 KB, the TPU's SMEM
-    budget for kernel inputs; here the node tables stay in global memory,
-    so only the traversal stack bounds the tree (its depth)."""
+    budget for kernel inputs; here the node table is read from global
+    memory, so only the traversal stacks bound the tree (its depth)."""
     if cfg.sampler not in SAMPLERS or cfg.env_nee:
         return False
     if cfg.light_strategy == "tree":
@@ -99,7 +103,7 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
         return False
     if AREA in ltypes and scene.emissive is None:
         return False
-    if scene.bvh is not None and 7 * scene.bvh.depth + 1 > STACK_SIZE:
+    if scene.bvh is not None and not stack_fits(scene.bvh.depth):
         return False
     return table_bytes(scene) <= MAX_SMEM_BYTES
 
@@ -111,6 +115,22 @@ def _shade(scene: Scene) -> torch.Tensor:
             "scene_from_arrays (ops/shade_tables.pack_shade_tables)"
         )
     return scene.shade_tables
+
+
+def _bvh_tables(scene: Scene):
+    """The BVH kernels' table arguments: the compact nodes, the triangle
+    rows and the material ids."""
+    nodes, rows = scene.bvh.nodes, scene.tri_rows
+    if nodes is None or rows is None:
+        raise ValueError(
+            "the scene has no compact BVH tables; build it with scene_from_host or "
+            "scene_from_arrays (ops/bvh.pack_nodes, pack_tri_rows)"
+        )
+    if not (nodes.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("the compact BVH tables must be contiguous")
+    if nodes.shape[0] >= 1 << 24:  # a stack entry holds the node in 24 bits
+        raise ValueError(f"{nodes.shape[0]} BVH nodes, more than the fused kernels' 2^24")
+    return nodes.data_ptr(), rows.data_ptr(), scene.tri_mat.data_ptr()
 
 
 def pack_tables(scene: Scene) -> torch.Tensor:
@@ -183,13 +203,12 @@ def trace_paths_fused(
     smp = (code, seed & 0xFFFFFFFF, qmc_dims)
     if scene.bvh is not None:
         check_bvh_scene(scene, o, d)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
         rc = _lib().pt_fused_bvh(
             o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            s32.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
-            scene.bvh.meta.data_ptr(), scene.tri_v0.data_ptr(), scene.tri_e0.data_ptr(),
-            scene.tri_e1.data_ptr(), scene.tri_mat.data_ptr(),
+            s32.data_ptr(), _shade(scene).data_ptr(), *_bvh_tables(scene),
             n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, *smp,
-            out.data_ptr(), stream,
+            counter.data_ptr(), out.data_ptr(), stream,
         )
     else:
         tables = pack_tables(scene)
@@ -212,33 +231,33 @@ trace_paths_fused.launches = 0
 # the depth-sorted fused wavefront
 # ---------------------------------------------------------------------------
 
-# rows of the (PLANES, N) path state: 32-bit planes, float32 or, for the
-# flags and keys, int32 bit patterns (u32 keys as their low 32 bits)
-O, D, BETA, RADIANCE = 0, 3, 6, 9  # three planes each, f32
+# columns of the (N, STATE_WORDS) path state, one row per path: 32-bit
+# words, float32 or, for the flags and keys, int32 bit patterns (u32 keys
+# as their low 32 bits)
+O, D, BETA, RADIANCE = 0, 3, 6, 9  # three words each, f32
 ALIVE, INSIDE, ETA_SCALE, PREV_PDF, PREV_DELTA = 12, 13, 14, 15, 16
 PX, PY, SAMPLE, SLOT = 17, 18, 19, 20  # the keys the paths carry along
-PLANES = 21
+FIELDS = 21
+STATE_WORDS = 24  # FIELDS padded to 96 B: six float4s
 
 
 def pack_path_state(px, py, sample, o, d) -> torch.Tensor:
-    """The (PLANES, N) float32 state of N fresh paths (``init_path_state``'s
-    values) with their RNG keys and their slot, the ray's own index."""
+    """The (N, STATE_WORDS) float32 state of N fresh paths
+    (``init_path_state``'s values) with their RNG keys and their slot, the
+    ray's own index (the row's own index too: rows stay in slot order)."""
     n, dev = o.shape[0], o.device
-    st = torch.empty((PLANES, n), dtype=torch.float32, device=dev)
+    st = torch.zeros((n, STATE_WORDS), dtype=torch.float32, device=dev)
     si = st.view(torch.int32)
-    st[O:O + 3] = o.T
-    st[D:D + 3] = d.T
-    st[BETA:BETA + 3] = 1.0
-    st[RADIANCE:RADIANCE + 3] = 0.0
-    si[ALIVE] = 1
-    si[INSIDE] = 0
-    st[ETA_SCALE] = 1.0
-    st[PREV_PDF] = 0.0
-    si[PREV_DELTA] = 1  # the camera counts as delta
-    si[PX] = _u32_as_i32(px, n, dev)
-    si[PY] = _u32_as_i32(py, n, dev)
-    si[SAMPLE] = _u32_as_i32(sample, n, dev)
-    si[SLOT] = torch.arange(n, dtype=torch.int32, device=dev)
+    st[:, O:O + 3] = o
+    st[:, D:D + 3] = d
+    st[:, BETA:BETA + 3] = 1.0
+    si[:, ALIVE] = 1
+    st[:, ETA_SCALE] = 1.0
+    si[:, PREV_DELTA] = 1  # the camera counts as delta
+    si[:, PX] = _u32_as_i32(px, n, dev)
+    si[:, PY] = _u32_as_i32(py, n, dev)
+    si[:, SAMPLE] = _u32_as_i32(sample, n, dev)
+    si[:, SLOT] = torch.arange(n, dtype=torch.int32, device=dev)
     return st
 
 
@@ -248,75 +267,92 @@ def unpack_path_state(st: torch.Tensor):
     from .megakernel import PathState
 
     si = st.view(torch.int32)
-    v3 = lambda p: st[p:p + 3].T.contiguous()  # noqa: E731
-    key = lambda p: si[p].to(torch.int64) & R.M32  # noqa: E731
+    v3 = lambda c: st[:, c:c + 3].contiguous()  # noqa: E731
+    key = lambda c: si[:, c].to(torch.int64) & R.M32  # noqa: E731
     state = PathState(
         o=v3(O), d=v3(D), beta=v3(BETA), radiance=v3(RADIANCE),
-        alive=si[ALIVE] != 0, inside=si[INSIDE] != 0, eta_scale=st[ETA_SCALE].clone(),
-        prev_pdf=st[PREV_PDF].clone(), prev_delta=si[PREV_DELTA] != 0,
+        alive=si[:, ALIVE] != 0, inside=si[:, INSIDE] != 0, eta_scale=st[:, ETA_SCALE].clone(),
+        prev_pdf=st[:, PREV_PDF].clone(), prev_delta=si[:, PREV_DELTA] != 0,
     )
     return state, key(PX), key(PY), key(SAMPLE)
 
 
+def path_keys(scene: Scene, st: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 sort key of every row of the state for the next depth:
+    ``ray_sort_key32`` of its ray, dead paths last. The plain version of
+    the keys the single-bounce kernel writes."""
+    alive = st.view(torch.int32)[:, ALIVE] != 0
+    return ray_sort_key32(st[:, O:O + 3], st[:, D:D + 3], scene.bounds[0], scene.bounds[1], alive)
+
+
 def bounce_plain(scene: Scene, st: torch.Tensor, depth: int, rr_start_depth: int = 2,
-                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS) -> None:
+                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS) -> torch.Tensor:
     """The single-bounce kernel's plain version: ``bounce_step`` on the
-    unpacked state, written back into ``st`` in place."""
+    unpacked state, written back into ``st`` in place → ``path_keys``."""
     from .megakernel import bounce_step
 
     cfg = _plain_cfg(depth + 1, rr_start_depth, seed, sampler)
     state, px, py, sample = unpack_path_state(st)
     new = bounce_step(scene, cfg, R.Sampler(sampler, seed, qmc_dims), px, py, sample, depth, state)
     si = st.view(torch.int32)
-    for p, v in ((O, new.o), (D, new.d), (BETA, new.beta), (RADIANCE, new.radiance)):
-        st[p:p + 3] = v.T
-    si[ALIVE] = new.alive.to(torch.int32)
-    si[INSIDE] = new.inside.to(torch.int32)
-    st[ETA_SCALE] = new.eta_scale
-    st[PREV_PDF] = new.prev_pdf
-    si[PREV_DELTA] = new.prev_delta.to(torch.int32)
+    for c, v in ((O, new.o), (D, new.d), (BETA, new.beta), (RADIANCE, new.radiance)):
+        st[:, c:c + 3] = v
+    si[:, ALIVE] = new.alive.to(torch.int32)
+    si[:, INSIDE] = new.inside.to(torch.int32)
+    st[:, ETA_SCALE] = new.eta_scale
+    st[:, PREV_PDF] = new.prev_pdf
+    si[:, PREV_DELTA] = new.prev_delta.to(torch.int32)
+    return path_keys(scene, st)
 
 
 def bounce_fused(scene: Scene, st: torch.Tensor, depth: int, rr_start_depth: int = 2,
-                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS) -> None:
+                 seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS,
+                 perm: torch.Tensor | None = None) -> torch.Tensor:
     """One bounce at ``depth`` of every live path of the packed state
-    ``st`` (``pack_path_state``), in place: the single-bounce kernel for a
-    CUDA state, its plain version ``bounce_plain`` for a CPU state."""
+    ``st`` (``pack_path_state``), in place → each row's (N,) int32 sort key
+    for the next depth (``path_keys``). The single-bounce kernel for a CUDA
+    state, thread t on row ``perm[t]`` (int64, a permutation of the rows
+    such as ``sort_paths`` gives, which the kernel trusts; the identity
+    without one); its plain version ``bounce_plain`` for a CPU state, where
+    the order of the rows' bounces does not matter."""
     code = _sampler_code(sampler, qmc_dims)
     if scene.bvh is None:
         raise ValueError("the single-bounce kernel traces BVH scenes only")
+    n = st.shape[0]
+    if st.dtype != torch.float32 or st.shape != (n, STATE_WORDS) or not st.is_contiguous():
+        raise ValueError(f"the path state must be a contiguous (N, {STATE_WORDS}) float32 tensor")
+    if perm is not None and (perm.shape != (n,) or perm.dtype != torch.int64
+                             or perm.device != st.device or not perm.is_contiguous()):
+        raise ValueError("perm must be a contiguous (N,) int64 tensor on the state's device")
     if not st.is_cuda:
-        bounce_plain(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims)
-        return
-    n = st.shape[1]
-    if st.dtype != torch.float32 or st.shape[0] != PLANES or not st.is_contiguous():
-        raise ValueError(f"the path state must be a contiguous ({PLANES}, N) float32 tensor")
-    check_bvh_scene(scene, st[O:O + 3].T, st[D:D + 3].T)
+        return bounce_plain(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims)
+    check_bvh_scene(scene, st[:, O:O + 3], st[:, D:D + 3])
+    keys = torch.empty((n,), dtype=torch.int32, device=st.device)
     if n == 0:
-        return
+        return keys
+    counter = torch.zeros(1, dtype=torch.int32, device=st.device)
     k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
     rc = _lib().pt_bounce_bvh(
-        st.data_ptr(), _shade(scene).data_ptr(), scene.bvh.box.data_ptr(),
-        scene.bvh.meta.data_ptr(), scene.tri_v0.data_ptr(), scene.tri_e0.data_ptr(),
-        scene.tri_e1.data_ptr(), scene.tri_mat.data_ptr(),
+        st.data_ptr(), None if perm is None else perm.data_ptr(), keys.data_ptr(),
+        scene.bounds.data_ptr(), _shade(scene).data_ptr(), *_bvh_tables(scene),
         n, scene.materials.mtype.shape[0], scene.num_lights, k, depth, rr_start_depth,
-        code, seed & 0xFFFFFFFF, qmc_dims, torch.cuda.current_stream(st.device).cuda_stream,
+        code, seed & 0xFFFFFFFF, qmc_dims, counter.data_ptr(),
+        torch.cuda.current_stream(st.device).cuda_stream,
     )
     if rc:
         raise RuntimeError(f"single-bounce kernel launch failed: CUDA error {rc}")
     bounce_fused.launches += 1
+    return keys
 
 
 bounce_fused.launches = 0
 
 
-def sort_paths(scene: Scene, st: torch.Tensor) -> torch.Tensor:
-    """The packed state with its paths stably sorted by ``ray_sort_key``
-    (direction octant | origin Morton; dead paths last): one sort of the
-    keys and one gather of all the planes, keys and slots included."""
-    alive = st.view(torch.int32)[ALIVE] != 0
-    key = ray_sort_key(st[O:O + 3].T, st[D:D + 3].T, scene.bounds[0], scene.bounds[1], alive)
-    return st.index_select(1, torch.sort(key, stable=True).indices)
+def sort_paths(keys: torch.Tensor) -> torch.Tensor:
+    """The order in which the next launch runs the rows: one stable sort of
+    their int32 keys (``bounce_fused``, ``path_keys``) → (N,) int64 row
+    indices, dead paths last, ties in slot order."""
+    return torch.sort(keys, stable=True).indices
 
 
 def trace_paths_fused_sorted(
@@ -325,21 +361,24 @@ def trace_paths_fused_sorted(
     sampler: str = "hash", qmc_dims: int = R.QMC_DIMS,
 ):
     """Depth-sorted fused wavefront → radiance (N,3) in the rays' own
-    order; the same estimator as ``trace_paths_fused``. Depth 0 runs on the
-    rays as given (camera rays in Morton order); before each later depth
-    the paths are re-sorted (``sort_paths``); one single-bounce launch per
-    depth; at the end one scatter by slot. For CPU tensors every bounce is
-    the plain ``bounce_step``, so the result equals ``trace_paths``'s bit
-    for bit. BVH scenes only."""
+    order; the same estimator as ``trace_paths_fused``. One single-bounce
+    launch per depth over the packed state, which stays in slot order:
+    depth 0 runs the rows as given (camera rays in Morton order), each
+    later depth in the order of the keys the previous launch wrote
+    (``sort_paths``: direction octant | origin Morton, dead paths last, ties
+    by slot); the radiance is read from the rows at the end. The order
+    only decides which thread runs which path, and a path's radiance
+    depends on its own state and keys alone, so the result equals
+    ``trace_paths_fused``'s bit for bit on the card, and, for CPU tensors,
+    where every bounce is the plain ``bounce_step``, ``trace_paths``'s. BVH
+    scenes only."""
     if scene.bvh is None:
         raise ValueError("the depth-sorted wavefront traces BVH scenes only")
     _sampler_code(sampler, qmc_dims)
-    n = o.shape[0]
     st = pack_path_state(px, py, sample, o, d)
+    perm = None
     for depth in range(max_depth):
-        if depth > 0:
-            st = sort_paths(scene, st)
-        bounce_fused(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims)
-    out = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-    out[st.view(torch.int32)[SLOT].to(torch.int64)] = st[RADIANCE:RADIANCE + 3].T
-    return out
+        keys = bounce_fused(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims, perm=perm)
+        if depth + 1 < max_depth:
+            perm = sort_paths(keys)
+    return st[:, RADIANCE:RADIANCE + 3].contiguous()

@@ -22,11 +22,25 @@ reference's exact layout:
 numpy: the CPU oracle of the CUDA kernel (``csrc/bvh.cuh``), step for
 step, with the counts of node pops and triangle tests that the bound of
 the kernel's work needs.
+
+The fused path-tracing kernels (``csrc/megakernel.cu``) read a compact
+copy of the same tree, built once per scene (``scene/types.py``):
+
+- ``pack_nodes`` → (M, 64) 32-bit words per node, 256 B: the 48 slab
+  floats of ``box`` (the TPU's 80 lanes of padding dropped), the 8 slot
+  words, with a leaf's row count less one in the spare bits 2-5, and the 8
+  permcodes; a node reads as 16 float4 loads;
+- ``pack_tri_rows`` → (Tp, 12) f32 rows ``[v0,0|e0,0|e1,0]``, three float4
+  loads per triangle.
+
+``traverse_compact_ref`` walks those tables one ray at a time as the
+kernels' traversal does (a stack of (node, children left) entries, one
+per level), and gives ``traverse_packed_ref``'s t and rows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,10 +51,22 @@ LEAF_SIZE = 16  # triangles per leaf, two 8-row blocks
 N_BINS = 16
 BRANCHING = 8
 STACK_SIZE = 64  # entries of the kernel's per-ray stack (csrc/bvh.cuh)
+COMPACT_STACK = 8  # entries of the fused kernels' stack (csrc/bvh_compact.cuh)
+NODE_WORDS = 64  # 32-bit words of a compact node: 48 slabs | 8 slots | 8 permcodes
+ROW_WORDS = 12  # floats of a compact triangle row
 
 CODE_EMPTY = 0
 CODE_INTERNAL = 1
 CODE_LEAF = 2
+
+
+def stack_fits(depth: int) -> bool:
+    """Can both traversals walk a tree of ``depth`` levels of internal
+    nodes? Kernel 4's ``bvh_trace`` pushes up to 7 children per node it
+    pops (7·depth + 1 entries); the fused kernels' compact walk keeps one
+    (node, children left) entry per level above the deepest (depth - 1).
+    Both allow depth 9 at most."""
+    return 7 * depth + 1 <= STACK_SIZE and depth - 1 <= COMPACT_STACK
 
 
 class BVHArrays(NamedTuple):
@@ -74,8 +100,8 @@ class PackedBVH(NamedTuple):
     box: torch.Tensor  # (M, 128) f32
     meta: torch.Tensor  # (M*16,) i32
     perm: np.ndarray  # (Tp,) i32 host: packed row → original tri, -1 = pad
-    depth: int  # levels of internal nodes from the root; a traversal
-    # stack holds at most 7·depth + 1 entries
+    depth: int  # levels of internal nodes from the root (stack_fits)
+    nodes: Optional[torch.Tensor] = None  # (M, 64) compact nodes (pack_nodes)
 
     @property
     def num_nodes(self):
@@ -157,6 +183,35 @@ def pack_bvh(bvh: BVHArrays, device="cpu") -> PackedBVH:
         torch.as_tensor(box, device=device), torch.as_tensor(meta, device=device),
         perm, tree_depth(meta),
     )
+
+
+def pack_nodes(box, meta, perm) -> torch.Tensor:
+    """The compact node table (M, 64) f32 on ``box``'s device: per node
+    ``box``'s 48 slab floats, the 8 slot words and the 8 permcodes of
+    ``meta`` (int32 bit patterns). A leaf's slot word also holds its row
+    count less one in bits 2-5: one past its last real row (``perm`` ≥ 0),
+    so a leaf test stops before the pad rows at its end."""
+    m = box.shape[0]
+    meta = np.asarray(meta.cpu(), np.int32).reshape(m, 16)
+    slots = meta[:, :8].astype(np.int64)
+    real = np.asarray(perm) >= 0
+    rows = ((slots >> 6) * 8)[..., None] + np.arange(LEAF_SIZE)  # (M, 8, 16)
+    in_leaf = np.where(rows < real.size, real[np.minimum(rows, real.size - 1)], False)
+    count = np.where(in_leaf.any(-1), LEAF_SIZE - np.argmax(in_leaf[..., ::-1], axis=-1), 1)
+    leaf = (slots & 63) == CODE_LEAF
+    words = np.where(leaf, slots | ((count - 1) << 2), slots).astype(np.int32)
+    nodes = np.zeros((m, NODE_WORDS), np.int32)
+    nodes[:, :48] = np.asarray(box.cpu(), np.float32)[:, :48].view(np.int32)
+    nodes[:, 48:56] = words
+    nodes[:, 56:64] = meta[:, 8:16]
+    return torch.from_numpy(nodes.view(np.float32)).to(box.device)
+
+
+def pack_tri_rows(v0, e0, e1) -> torch.Tensor:
+    """(Tp, 12) f32 triangle rows ``[v0,0|e0,0|e1,0]`` of the packed
+    arrays, on their device."""
+    z = torch.zeros_like(v0[:, :1])
+    return torch.cat([v0, z, e0, z, e1, z], dim=1).contiguous()
 
 
 def permute_tri_array(arr, perm, pad_value=0) -> np.ndarray:
@@ -317,3 +372,91 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
     if anyhit:
         return occ, counts
     return t_best, i_best, counts
+
+
+def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
+    """Per-ray walk of the compact tables (``pack_nodes``,
+    ``pack_tri_rows``), one ray at a time, as the fused kernels' traversal
+    (``csrc/bvh_compact.cuh``) does it:
+
+    - a node's expansion slab-tests its 8 children at once (the test of
+      ``traverse_packed_ref``) and keeps the non-empty ones that pass, in
+      near-first order of the ray's octant permcode;
+    - the walk takes the children left one by one: a leaf tests its rows
+      up to its last real one; an internal child is descended into, its
+      parent pushed as (node, children left) when any are left; an empty
+      list pops the stack;
+    - a child taken after the limit may have shrunk (not the first one of
+      an expansion) is slab-tested again against the limit (t_best for
+      "closest"; "any" never shrinks its limit), the cull the packed walk
+      makes with its stored tn.
+
+    The visits, culls and leaf tests are ``traverse_packed_ref``'s, in the
+    same order, so it returns the same ``(t, i)`` for "closest" (BIG_T and
+    row 0 on a miss) or occlusion flags for "any"."""
+    if mode not in ("closest", "any"):
+        raise ValueError(f"unknown mode {mode!r}")
+    anyhit = mode == "any"
+    npf = lambda x: np.asarray(x.cpu() if torch.is_tensor(x) else x)  # noqa: E731
+    nd = npf(nodes).astype(_F).reshape(-1, NODE_WORDS)
+    slab = nd[:, :48].reshape(-1, 6, 8)  # lo x, y, z | hi x, y, z
+    words = nd[:, 48:].view(np.int32)  # slot words | permcodes
+    rw = npf(rows).astype(_F).reshape(-1, ROW_WORDS)
+    v0, e0, e1 = rw[:, 0:3], rw[:, 4:7], rw[:, 8:11]
+    o = npf(o).astype(_F)
+    d = npf(d).astype(_F)
+    n = o.shape[0]
+    if anyhit:
+        limit0 = np.broadcast_to(np.asarray(npf(t_max), _F), (n,))
+    tiny = _F(1e-12)
+    inv = _F(1.0) / np.where(np.abs(d) < tiny, tiny, d)
+    t_best = np.full(n, BIG_T, _F)
+    i_best = np.zeros(n, np.int64)
+    occ = np.zeros(n, bool)
+    for r in range(n):
+        oct_ = int(d[r, 0] < 0) | int(d[r, 1] < 0) << 1 | int(d[r, 2] < 0) << 2
+        tb = limit0[r] if anyhit else _F(BIG_T)
+        oo, ii = o[r][:, None], inv[r][:, None]
+
+        def passes(node):
+            t0 = (slab[node, 0:3] - oo) * ii
+            t1 = (slab[node, 3:6] - oo) * ii
+            tmin, tmax = np.minimum(t0, t1), np.maximum(t0, t1)
+            tn = np.maximum(np.maximum(tmin[0], tmin[1]), np.maximum(tmin[2], _F(T_MIN)))
+            tf = np.minimum(np.minimum(tmax[0], tmax[1]), np.minimum(tmax[2], tb))
+            return (tn <= tf) & ((words[node, :8] & 3) != CODE_EMPTY)
+
+        def expand(node):
+            pc, ok = int(words[node, 8 + oct_]), passes(node)
+            return [c for c in ((pc >> (21 - 3 * j)) & 7 for j in range(BRANCHING)) if ok[c]]
+
+        node, left, fresh, stack = 0, expand(0), True, []
+        while left or stack:
+            if not left:
+                node, left = stack.pop()
+                fresh = False
+                continue
+            ch = left.pop(0)
+            if not (anyhit or fresh or passes(node)[ch]):
+                continue
+            fresh = False
+            w = int(words[node, ch])
+            if w & 3 == CODE_LEAF:
+                k = np.arange((w >> 6) * 8, (w >> 6) * 8 + ((w >> 2) & 15) + 1)
+                t = _mt(o[r:r + 1], d[r:r + 1], v0[k][None], e0[k][None], e1[k][None])[0]
+                if anyhit and (t < tb).any():
+                    occ[r] = True
+                    break
+                j = int(np.argmin(t))
+                if not anyhit and t[j] < tb:
+                    tb, i_best[r] = t[j], k[j]
+                continue
+            if left:
+                stack.append((node, left))
+                if len(stack) > COMPACT_STACK:
+                    raise RuntimeError(f"traversal stack overflow ({COMPACT_STACK} entries)")
+            node, left, fresh = w >> 6, expand(w >> 6), True
+        t_best[r] = tb
+    if anyhit:
+        return occ
+    return t_best, i_best

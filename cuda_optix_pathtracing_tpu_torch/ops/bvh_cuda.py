@@ -20,7 +20,7 @@ import functools
 import torch
 
 from . import _cuda_build
-from .bvh import STACK_SIZE
+from .bvh import COMPACT_STACK, STACK_SIZE, stack_fits
 from .intersect import intersect_any, intersect_closest_raw
 
 _P = ctypes.c_void_p
@@ -39,15 +39,16 @@ def _lib():
 
 def check_bvh_scene(scene, o, d) -> None:
     """Raise unless ``scene`` has a BVH the kernels can walk (its depth
-    fits their stack, its tables are contiguous) and the rays are (N, 3)
+    fits their stacks, its tables are contiguous) and the rays are (N, 3)
     float32 on its device."""
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH")
-    if 7 * bvh.depth + 1 > STACK_SIZE:
+    if not stack_fits(bvh.depth):
         raise ValueError(
-            f"BVH depth {bvh.depth} needs {7 * bvh.depth + 1} stack entries, more "
-            f"than the traversal kernel's {STACK_SIZE}"
+            f"BVH depth {bvh.depth} needs {7 * bvh.depth + 1} stack entries in the "
+            f"traversal kernel (it has {STACK_SIZE}) and {bvh.depth - 1} in the fused "
+            f"kernels (they have {COMPACT_STACK})"
         )
     for name, x in (("o", o), ("d", d)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 DEAD_KEY = 0xFFFFFFFF
+DEAD_KEY32 = 0x7FFFFFFF  # ray_sort_key32's dead key: after every live one
 
 
 def _part3(v):
@@ -52,6 +53,15 @@ def ray_sort_key(o, d, bounds_lo, bounds_hi, alive=None, morton_bits: int = 7):
     if alive is not None:
         key = torch.where(alive, key, DEAD_KEY)
     return key
+
+
+def ray_sort_key32(o, d, bounds_lo, bounds_hi, alive):
+    """``ray_sort_key`` as an (N,) int32, the depth-sorted wavefront's key:
+    a live key's u32 value has bit 31 clear (3 octant bits at 28-30), so it
+    is kept as is, and a dead ray gets ``DEAD_KEY32``; the int32 order is
+    then ``ray_sort_key``'s u32 order, dead rays last."""
+    key = ray_sort_key(o, d, bounds_lo, bounds_hi)
+    return torch.where(alive, key, DEAD_KEY32).to(torch.int32)
 
 
 def scene_bounds(v0, e0, e1):

@@ -10,9 +10,10 @@ textures, shading normals, an HDR environment or instancing (slice 5)
 raise ``NotImplementedError``.
 
 Every table a kernel or a query reads is built here, once per scene: the
-BVH node tables, ``bounds`` (the packed rows' box, which the ray sort of
-BVH queries quantises origins in) and ``shade_tables``, the fused
-kernel's packed shading tables.
+BVH node tables (the reference's layout for the traversal kernels, and the
+fused kernels' compact copy with its triangle rows), ``bounds`` (the
+packed rows' box, which the ray sort of BVH queries quantises origins in)
+and ``shade_tables``, the fused kernel's packed shading tables.
 
 ``scene_from_arrays`` carries a reference ``Scene`` over: it takes the
 reference's fields flattened to numpy by dotted name (``"materials.albedo"``,
@@ -30,7 +31,15 @@ import torch
 
 from .._device import resolve_device
 from ..ops.bsdf import MaterialTable, make_material_table
-from ..ops.bvh import PackedBVH, build_bvh, pack_bvh, permute_tri_array, tree_depth
+from ..ops.bvh import (
+    PackedBVH,
+    build_bvh,
+    pack_bvh,
+    pack_nodes,
+    pack_tri_rows,
+    permute_tri_array,
+    tree_depth,
+)
 from ..ops.camera import CameraConfig, camera_from_raster, world_from_camera
 from ..ops.envmap import EnvMap, constant_envmap, make_constant_envmap
 from ..ops.lights import (
@@ -72,6 +81,8 @@ class Scene(NamedTuple):
     # shading tables (ops/shade_tables.pack_shade_tables)
     bounds: Optional[torch.Tensor] = None  # (2, 3) f32 [lo, hi] box of the
     # triangle rows (pads included) of a BVH scene: the ray sort's grid
+    tri_rows: Optional[torch.Tensor] = None  # (Tp, 12) f32 [v0,0|e0,0|e1,0]
+    # rows of a BVH scene, which the fused kernels read (ops/bvh.pack_tri_rows)
 
     @property
     def num_triangles(self) -> int:
@@ -213,13 +224,17 @@ def scene_from_host(
 def with_kernel_tables(scene: Scene) -> Scene:
     """``scene`` with the tables its kernels and queries read, built once
     per scene so that no launch builds them: the fused kernel's shading
-    tables, and a BVH scene's ``bounds``."""
-    bounds = None
+    tables, and a BVH scene's ``bounds`` and the fused kernels' compact
+    node table (``bvh.nodes``) and triangle rows (``tri_rows``)."""
+    bvh = bounds = rows = None
     if scene.bvh is not None:
-        bounds = torch.stack(scene_bounds(scene.tri_v0, scene.tri_e0, scene.tri_e1))
+        tris = (scene.tri_v0, scene.tri_e0, scene.tri_e1)
+        bounds = torch.stack(scene_bounds(*tris))
+        bvh = scene.bvh._replace(nodes=pack_nodes(scene.bvh.box, scene.bvh.meta, scene.bvh.perm))
+        rows = pack_tri_rows(*tris)
     return scene._replace(
         shade_tables=pack_shade_tables(scene.materials, scene.lights, scene.env, scene.emissive),
-        bounds=bounds,
+        bounds=bounds, bvh=bvh, tri_rows=rows,
     )
 
 

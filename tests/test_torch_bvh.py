@@ -153,6 +153,13 @@ def test_kernel_refuses_trees_deeper_than_its_stack():
         check_bvh_scene(deep, o, o)
 
 
+def test_both_stacks_allow_depth_nine():
+    """Kernel 4's stack (7 entries a level) and the fused kernels' compact
+    stack (one entry a level) refuse the same trees: deeper than 9."""
+    assert TB.stack_fits(9) and not TB.stack_fits(10)
+    assert 7 * 10 + 1 > TB.STACK_SIZE and 10 - 1 > TB.COMPACT_STACK
+
+
 @pytest.fixture(scope="module")
 def mesh8():
     return cornell_box_mesh(8, 8, subdiv=8, use_bvh=True, device="cpu")
@@ -194,3 +201,77 @@ def test_native_library_is_keyed_by_host_cpu(monkeypatch):
     monkeypatch.setattr(native, "cpu_fingerprint", lambda: "another CPU")
     assert native.lib_path() != here
     assert native.lib_path().parent == here.parent
+
+
+# ---- the fused kernels' compact tables -------------------------------------
+
+
+def _compact_case(name):
+    """(PackedBVH, triangle arrays, compact nodes and rows, rays) of a
+    random soup or the port's mesh Cornell box (subdivision 16)."""
+    if name == "mesh16":
+        scene = cornell_box_mesh(24, 24, subdiv=16, use_bvh=True, device="cpu")
+        packed, tris = scene.bvh, (scene.tri_v0, scene.tri_e0, scene.tri_e1)
+        rng = np.random.default_rng(2)
+        o = rng.uniform([-2.0, 0.0, -0.5], [2.0, 4.0, 2.0], (600, 3)).astype(np.float32)
+        d = rng.normal(size=(600, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        t_max = rng.uniform(0.5, 6.0, 600).astype(np.float32)
+        return packed, tris, scene.bvh.nodes, scene.tri_rows, (o, d, t_max)
+    t, n = {"soup5": (5, 200), "soup40": (40, 500), "soup300": (300, 600)}[name]
+    v0, e0, e1 = random_soup(t)
+    packed = TB.pack_bvh(TB.build_bvh(v0, e0, e1))
+    tris = tuple(torch.from_numpy(TB.permute_tri_array(a, packed.perm)) for a in (v0, e0, e1))
+    nodes = TB.pack_nodes(packed.box, packed.meta, packed.perm)
+    return packed, tris, nodes, TB.pack_tri_rows(*tris), random_rays(n)
+
+
+@pytest.mark.parametrize("name", ["soup5", "soup40", "soup300", "mesh16"])
+def test_compact_nodes_round_trip(name):
+    """Every child's slabs, slot word and permcode of PackedBVH come back
+    from the compact table; a leaf's row count ends at its last real row."""
+    packed, _, nodes, _, _ = _compact_case(name)
+    assert nodes.shape == (packed.num_nodes, TB.NODE_WORDS) and nodes.dtype == torch.float32
+    box, meta = packed.box.numpy(), packed.meta.numpy().reshape(-1, 16)
+    words = nodes.view(torch.int32).numpy()
+    np.testing.assert_array_equal(nodes.numpy()[:, :48], box[:, :48])
+    assert not box[:, 48:].any()  # what the compact node drops is padding
+    np.testing.assert_array_equal(words[:, 56:], meta[:, 8:])
+    slots = words[:, 48:56]
+    np.testing.assert_array_equal(slots & ~0x3C, meta[:, :8])
+    leaf = (meta[:, :8] & 63) == TB.CODE_LEAF
+    assert not (slots[~leaf] & 0x3C).any()
+    real = packed.perm >= 0
+    for w in slots[leaf]:
+        block = real[(w >> 6) * 8:(w >> 6) * 8 + TB.LEAF_SIZE]
+        assert ((w >> 2) & 15) + 1 == np.nonzero(block)[0].max() + 1
+    assert real.sum() < real.size  # the leaves have pad rows to skip
+
+
+@pytest.mark.parametrize("name", ["soup40", "soup300", "mesh16"])
+def test_compact_walk_matches_packed_oracle(name):
+    """The numpy walk over the compact layout (the fused kernels'
+    traversal) gives traverse_packed_ref's t and rows bit for bit, and its
+    occlusion flags."""
+    packed, tris, nodes, rows, (o, d, t_max) = _compact_case(name)
+    t, i = TB.traverse_compact_ref(nodes, rows, o, d)
+    tr, ir, _ = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d)
+    assert (tr < BIG_T).sum() > 0
+    np.testing.assert_array_equal(t, tr)
+    np.testing.assert_array_equal(i, ir)
+    occ = TB.traverse_compact_ref(nodes, rows, o, d, "any", t_max)
+    occ_r, _ = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d, "any", t_max)
+    assert 0 < occ_r.sum() < occ_r.size
+    np.testing.assert_array_equal(occ, occ_r)
+
+
+def test_compact_tables_built_once_per_scene(mesh8):
+    """A BVH scene carries its compact nodes and (Tp, 12) rows, which equal
+    pack_nodes's and tri_v0 / e0 / e1 with zero padding."""
+    nodes = TB.pack_nodes(mesh8.bvh.box, mesh8.bvh.meta, mesh8.bvh.perm)
+    np.testing.assert_array_equal(mesh8.bvh.nodes.numpy(), nodes.numpy())
+    rows = mesh8.tri_rows
+    assert rows.shape == (mesh8.num_triangles, TB.ROW_WORDS) and rows.is_contiguous()
+    for c, a in ((0, mesh8.tri_v0), (4, mesh8.tri_e0), (8, mesh8.tri_e1)):
+        np.testing.assert_array_equal(rows[:, c:c + 3].numpy(), a.numpy())
+    assert not rows[:, 3::4].any()

@@ -195,7 +195,7 @@ def test_fused_halton_matches_trace_paths(dev, scene, mesh, case):
 
 
 def _check_planes(sk, sp):
-    """Kernel 6's state against bounce_step's, plane by plane, to the
+    """Kernel 6's state rows against bounce_step's, column by column, to the
     tolerances of chip_smoke.py's check_planes: keys and slots equal;
     flags equal on 99.99 % of the paths; o and d within 1e-5; beta,
     eta_scale and prev_pdf within 1e-5 relative on 99 % of the paths and
@@ -204,46 +204,51 @@ def _check_planes(sk, sp):
     from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
 
     ik, ip = sk.view(torch.int32), sp.view(torch.int32)
-    for p in (MKC.PX, MKC.PY, MKC.SAMPLE, MKC.SLOT):
-        assert bool((ik[p] == ip[p]).all()), p
-    for p in (MKC.ALIVE, MKC.INSIDE, MKC.PREV_DELTA):
-        assert int((ik[p] != ip[p]).sum()) <= 1e-4 * sk.shape[1], p
-    gap = (sk[:MKC.BETA] - sp[:MKC.BETA]).abs()
-    assert bool((gap <= 1e-5 * sp[:MKC.BETA].abs().clamp(min=1.0)).all())
-    for p in (MKC.BETA, MKC.BETA + 1, MKC.BETA + 2, MKC.ETA_SCALE, MKC.PREV_PDF):
-        rel = (sk[p] - sp[p]).abs() / sp[p].abs().clamp(min=1e-30)
-        assert float((rel > 1e-5).float().mean()) <= 1e-2, p
-        assert float((rel > 1e-3).float().mean()) <= 1e-3, p
-    diff = (sk[MKC.RADIANCE:MKC.RADIANCE + 3] - sp[MKC.RADIANCE:MKC.RADIANCE + 3]).abs()
+    for c in (MKC.PX, MKC.PY, MKC.SAMPLE, MKC.SLOT):
+        assert bool((ik[:, c] == ip[:, c]).all()), c
+    for c in (MKC.ALIVE, MKC.INSIDE, MKC.PREV_DELTA):
+        assert int((ik[:, c] != ip[:, c]).sum()) <= 1e-4 * sk.shape[0], c
+    gap = (sk[:, :MKC.BETA] - sp[:, :MKC.BETA]).abs()
+    assert bool((gap <= 1e-5 * sp[:, :MKC.BETA].abs().clamp(min=1.0)).all())
+    for c in (MKC.BETA, MKC.BETA + 1, MKC.BETA + 2, MKC.ETA_SCALE, MKC.PREV_PDF):
+        rel = (sk[:, c] - sp[:, c]).abs() / sp[:, c].abs().clamp(min=1e-30)
+        assert float((rel > 1e-5).float().mean()) <= 1e-2, c
+        assert float((rel > 1e-3).float().mean()) <= 1e-3, c
+    rad = slice(MKC.RADIANCE, MKC.RADIANCE + 3)
+    diff = (sk[:, rad] - sp[:, rad]).abs()
     assert float(diff.mean()) < 1e-4
-    assert float((diff.max(0).values > 1e-3).float().mean()) < 0.005
+    assert float((diff.max(1).values > 1e-3).float().mean()) < 0.005
 
 
 @pytest.mark.parametrize("sampler", ["hash", "halton"])
 def test_bounce_kernel_matches_bounce_step(dev, mesh, sampler):
-    """Kernel 6 at depths 0-3 on the sorted state, dead paths included,
-    against the plain bounce on the same state."""
+    """Kernel 6 at depths 0-3, each launch in the order of the keys the
+    last one wrote, dead paths included, against the plain bounce on the
+    same rows; its keys are path_keys of its own rows."""
     from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
 
     st = MKC.pack_path_state(*_camera_rays(dev, mesh, 4, sampler=sampler))
+    perm = None
     for depth in range(4):
-        if depth:
-            st = MKC.sort_paths(mesh, st)
         sk, sp = st.clone(), st.clone()
         before = MKC.bounce_fused.launches
-        MKC.bounce_fused(mesh, sk, depth, seed=3, sampler=sampler)
+        kk = MKC.bounce_fused(mesh, sk, depth, seed=3, sampler=sampler, perm=perm)
         assert MKC.bounce_fused.launches == before + 1
-        MKC.bounce_plain(mesh, sp, depth, seed=3, sampler=sampler)
+        kp = MKC.bounce_plain(mesh, sp, depth, seed=3, sampler=sampler)
         torch.cuda.synchronize()
         _check_planes(sk, sp)
-        dead = st.view(torch.int32)[MKC.ALIVE] == 0
-        assert bool((sk[:, dead] == st[:, dead]).all())  # dead paths untouched
-        st = sk
-    assert int((st.view(torch.int32)[MKC.ALIVE] == 0).sum()) > 0
+        assert torch.equal(kk, MKC.path_keys(mesh, sk))
+        assert float((kk != kp).float().mean()) <= 1e-3
+        dead = st.view(torch.int32)[:, MKC.ALIVE] == 0
+        assert bool((sk[dead] == st[dead]).all())  # dead paths untouched
+        st, perm = sk, MKC.sort_paths(kk)
+    assert int((st.view(torch.int32)[:, MKC.ALIVE] == 0).sum()) > 0
 
 
 @pytest.mark.parametrize("sampler", ["hash", "halton"])
 def test_sorted_route_matches_fused(dev, mesh, sampler):
+    """The depth-sorted route equals the fused kernel bit for bit, and both
+    meet the parity bar."""
     from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
 
     spp = 4
@@ -252,10 +257,48 @@ def test_sorted_route_matches_fused(dev, mesh, sampler):
     rs = MKC.trace_paths_fused_sorted(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
     assert MKC.bounce_fused.launches == before + 5
     rf = MKC.trace_paths_fused(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
-    diff = ((rs - rf).reshape(spp, -1, 3).sum(0) / spp).abs()
     assert bool(torch.isfinite(rs).all()) and float(rs.mean()) > 0.0
+    assert torch.equal(rs, rf)
+
+
+# kernel 5 at sizes below one wave of its persistent grid and ragged
+@pytest.mark.parametrize("n", [0, 1, 37, 4133])
+def test_fused_bvh_any_launch_size(dev, mesh, n):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+
+    px, py, sample, o, d = (x[:n] for x in _camera_rays(dev, mesh, 5))
+    before = trace_paths_fused.launches
+    rk = trace_paths_fused(mesh, px, py, sample, o, d, max_depth=5)
+    assert rk.shape == (n, 3)
+    assert trace_paths_fused.launches == before + (n > 0)
+    rp = MK.trace_paths(mesh, MK.MegakernelConfig(max_depth=5, backend="torch"),
+                        px, py, sample, o, d, device=dev)
+    diff = (rk - rp).abs()
+    assert bool(torch.isfinite(rk).all())
+    if n:
+        assert float(diff.mean()) < 1e-4
+        assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
+def test_bvh_kernels_on_a_deeper_tree(dev):
+    """Kernels 5 and 6 on a tree of depth 8 whose 396 KB of compact nodes
+    exceed L1 (the mesh Cornell box at subdivision 128), against their plain
+    versions, and bit for bit against each other."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
+
+    big = cornell_box_mesh(32, 32, subdiv=128, device=dev)
+    assert big.bvh.depth >= 7 and big.bvh.nodes.numel() * 4 > 256 * 1024
+    px, py, sample, o, d = _camera_rays(dev, big, 2)
+    rk = MKC.trace_paths_fused(big, px, py, sample, o, d, max_depth=5)
+    rp = MK.trace_paths(big, MK.MegakernelConfig(max_depth=5, backend="torch", tri_chunk=1024),
+                        px, py, sample, o, d, device=dev)
+    diff = (rk - rp).abs()
     assert float(diff.mean()) < 1e-4
     assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+    assert torch.equal(MKC.trace_paths_fused_sorted(big, px, py, sample, o, d, max_depth=5), rk)
 
 
 def test_sorted_route_refuses_brute_force_scene(dev, scene):

@@ -41,6 +41,23 @@ def test_ray_sort_key_equals_reference():
     np.testing.assert_array_equal(bhi.numpy(), np.asarray(jhi))
 
 
+def test_int32_key_sorts_as_ray_sort_key():
+    """The depth-sorted wavefront's int32 key: live keys equal ray_sort_key's
+    u32 values, dead rays 0x7FFFFFFF, and its stable argsort is
+    ray_sort_key's, dead rays included."""
+    o, d, alive = (torch.from_numpy(a) for a in _rays(20_000, seed=3))
+    alive[:2000] = False  # runs of dead rays among live ones with equal keys
+    o[2000:6000] = o[2000]
+    lo, hi = torch.tensor([-2.0, 0.0, -1.0]), torch.tensor([2.0, 4.0, 2.5])
+    k64 = TR.ray_sort_key(o, d, lo, hi, alive)
+    k32 = TR.ray_sort_key32(o, d, lo, hi, alive)
+    assert k32.dtype == torch.int32
+    np.testing.assert_array_equal(k32[alive].numpy(), k64[alive].numpy())
+    assert bool((k32[~alive] == TR.DEAD_KEY32).all()) and int(k64[alive].max()) < TR.DEAD_KEY32
+    np.testing.assert_array_equal(torch.sort(k32, stable=True).indices.numpy(),
+                                  torch.sort(k64, stable=True).indices.numpy())
+
+
 def test_sorted_apply_round_trip_is_exact():
     o, d, alive = (torch.from_numpy(a) for a in _rays(4096, seed=1))
     key = TR.ray_sort_key(o, d, o.amin(0), o.amax(0), alive)

@@ -87,22 +87,62 @@ def test_sorted_matches_reference(scenes, sampler):
 
 
 def test_bounce_keeps_dead_paths_and_sorts_them_last(scenes):
-    """One plain bounce leaves a dead path's planes as they were; the sort
-    puts dead paths last and carries every plane along."""
+    """One plain bounce leaves a dead path's row as it was and gives it the
+    dead key; every key is ``path_keys``'s; the sort of the keys runs the
+    dead paths last; the rows stay in slot order."""
     _, t_scene = scenes
     st = MKC.pack_path_state(*_t(*_camera(scenes[0], "hash")))
     for depth in range(3):  # roulette from depth 2 ends paths
-        MKC.bounce_fused(t_scene, st, depth)
-    dead = st.view(torch.int32)[MKC.ALIVE] == 0
-    assert 0 < int(dead.sum()) < st.shape[1]
+        keys = MKC.bounce_fused(t_scene, st, depth)
+    dead = st.view(torch.int32)[:, MKC.ALIVE] == 0
+    assert 0 < int(dead.sum()) < st.shape[0]
     before = st.clone()
-    MKC.bounce_fused(t_scene, st, 3)
-    np.testing.assert_array_equal(st[:, dead].numpy(), before[:, dead].numpy())
-    srt = MKC.sort_paths(t_scene, st)
-    alive = srt.view(torch.int32)[MKC.ALIVE] != 0
-    assert not bool(alive[int(alive.sum()):].any())
-    slot = srt.view(torch.int32)[MKC.SLOT].to(torch.int64)
-    np.testing.assert_array_equal(srt.numpy(), st[:, slot].numpy())
+    keys = MKC.bounce_fused(t_scene, st, 3, perm=MKC.sort_paths(keys))
+    np.testing.assert_array_equal(st[dead].numpy(), before[dead].numpy())
+    np.testing.assert_array_equal(keys.numpy(), MKC.path_keys(t_scene, st).numpy())
+    alive = st.view(torch.int32)[:, MKC.ALIVE] != 0
+    assert keys.dtype == torch.int32
+    assert bool((keys[~alive] == 0x7FFFFFFF).all()) and bool((keys[alive] < 0x7FFFFFFF).all())
+    perm = MKC.sort_paths(keys)
+    assert perm.dtype == torch.int64
+    assert not bool(alive[perm][int(alive.sum()):].any())
+    np.testing.assert_array_equal(st.view(torch.int32)[:, MKC.SLOT].numpy(), np.arange(st.shape[0]))
+
+
+def test_path_state_round_trips():
+    """pack_path_state → unpack_path_state gives back the rays, the keys
+    (full u32 range) and init_path_state's values, in (N, 24) rows of 96 B
+    with zero padding; a state written into the rows unpacks unchanged."""
+    rs = np.random.default_rng(4)
+    n = 37
+    o = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+    d = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+    px, py, sample = (torch.from_numpy(rs.integers(0, 2**32, n, dtype=np.int64)) for _ in range(3))
+    st = MKC.pack_path_state(px, py, sample, o, d)
+    assert st.shape == (n, MKC.STATE_WORDS) and st.dtype == torch.float32 and st.is_contiguous()
+    assert 4 * MKC.STATE_WORDS == 96 and MKC.FIELDS <= MKC.STATE_WORDS
+    assert not st[:, MKC.FIELDS:].any()
+    state, kpx, kpy, ks = MKC.unpack_path_state(st)
+    for a, b in ((state.o, o), (state.d, d), (kpx, px), (kpy, py), (ks, sample)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert bool((state.beta == 1).all()) and not bool(state.radiance.any())
+    assert bool(state.alive.all()) and not bool(state.inside.any()) and bool(state.prev_delta.all())
+    assert bool((state.eta_scale == 1).all()) and not bool(state.prev_pdf.any())
+    np.testing.assert_array_equal(st.view(torch.int32)[:, MKC.SLOT].numpy(), np.arange(n))
+    si = st.view(torch.int32)
+    vals = torch.from_numpy(rs.normal(size=(n, 12)).astype(np.float32))
+    st[:, :12] = vals
+    st[:, MKC.ETA_SCALE] = vals[:, 0]
+    st[:, MKC.PREV_PDF] = vals[:, 1]
+    flags = torch.from_numpy(rs.integers(0, 2, (n, 3)).astype(np.int32))
+    si[:, MKC.ALIVE], si[:, MKC.INSIDE], si[:, MKC.PREV_DELTA] = flags.T
+    state, *_ = MKC.unpack_path_state(st)
+    for a, c in ((state.o, 0), (state.d, 3), (state.beta, 6), (state.radiance, 9)):
+        np.testing.assert_array_equal(a.numpy(), vals[:, c:c + 3].numpy())
+    np.testing.assert_array_equal(state.eta_scale.numpy(), vals[:, 0].numpy())
+    np.testing.assert_array_equal(state.prev_pdf.numpy(), vals[:, 1].numpy())
+    for a, f in ((state.alive, 0), (state.inside, 1), (state.prev_delta, 2)):
+        np.testing.assert_array_equal(a.numpy(), flags[:, f].numpy() != 0)
 
 
 def test_sorted_refuses_a_scene_without_bvh():
