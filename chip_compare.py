@@ -28,7 +28,9 @@ measures:
 
 A process prints one JSON line; this script prints each turn's line,
 the means by checkout and whether the digests agree across turns. It
-needs one card and prints its name and power limit first.
+needs one card and prints its name and power limit first. The camera
+rays and the profiler timing are ``chip_smoke.py``'s (``camera_rays``,
+``kernel_ms``, ``profiled``), from the directory of this script.
 """
 
 from __future__ import annotations
@@ -40,29 +42,10 @@ import subprocess
 import sys
 import time
 
-W = H = 256
+import chip_smoke as S
+
 SPP = 16
 DEPTH = 5
-
-
-def _device_ms(fn, iters: int, match) -> tuple[float, int]:
-    """(device ms per call of the kernels whose profiler name satisfies
-    ``match``, records kept) over ``iters`` calls of ``fn`` after warm-up."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.02)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.02)
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and match(e.key)]
-    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, sum(e.count for e in rows)
 
 
 def mesh_leg():
@@ -73,25 +56,11 @@ def mesh_leg():
     sys.path.insert(0, os.getcwd())
     from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
     from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
-    from cuda_optix_pathtracing_tpu_torch.ops import rng as R
-    from cuda_optix_pathtracing_tpu_torch.ops.camera import generate_rays, pixel_centers
-    from cuda_optix_pathtracing_tpu_torch.ops.morton import morton_pixel_order
     from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
 
-    dev = torch.device("cuda")
-    mesh = cornell_box_mesh(W, H, subdiv=64, device=dev)
-
-    def rays(sampler):
-        pix = pixel_centers(W, H, dev)[torch.as_tensor(morton_pixel_order(W, H), device=dev)]
-        pix = pix.repeat(SPP, 1)
-        sample = torch.repeat_interleave(torch.arange(SPP, device=dev), W * H)
-        px, py = pix[:, 0].long(), pix[:, 1].long()
-        u1, u2 = R.Sampler(sampler, 0).sample_2d(px, py, sample, R.Dim.CAMERA_U)
-        o, d = generate_rays(pix + torch.stack([u1, u2], -1), mesh.cam_from_raster,
-                             mesh.world_from_cam)
-        return px, py, sample, o, d
-
-    return MK, MKC, mesh, rays("hash"), rays("halton")
+    mesh = cornell_box_mesh(S.W, S.H, subdiv=S.MESH_SUBDIV, device=torch.device("cuda"))
+    rays = {smp: S.camera_rays(mesh, SPP, morton=True, sampler=smp) for smp in ("hash", "halton")}
+    return MK, MKC, mesh, rays["hash"], rays["halton"]
 
 
 def measure() -> dict:
@@ -99,9 +68,10 @@ def measure() -> dict:
     import torch
 
     MK, MKC, mesh, hash_rays, halton_rays = mesh_leg()
-
-    def fused_bvh(sampler):  # the kernel's name before and after it got its own body
-        return lambda key: ("BvhGeo" in key or "pt_fused_bvh_kernel" in key) and sampler in key
+    # the fused BVH kernel's name, before and after it got its own body
+    src = os.path.join("cuda_optix_pathtracing_tpu_torch", "csrc", "megakernel.cu")
+    with open(src) as f:
+        fused_name = "::pt_fused_bvh_kernel<" if "pt_fused_bvh_kernel" in f.read() else "BvhGeo,"
 
     def digest(x):
         return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -116,15 +86,18 @@ def measure() -> dict:
                                  ("k5_halton", "HaltonRng", halton_rays, DEPTH),
                                  ("k5_hash_depth1", "HashRng", hash_rays, 1)):
         sampler = "halton" if smp == "HaltonRng" else "hash"
-        out[label], out[label + "_records"] = _device_ms(
+        out[label] = S.kernel_ms(
             lambda: MKC.trace_paths_fused(mesh, *r, max_depth=depth, sampler=sampler), 10,
-            fused_bvh(smp))
-    k6, n6 = _device_ms(lambda: MKC.trace_paths_fused_sorted(mesh, *hash_rays, max_depth=DEPTH), 5,
-                        lambda key: "pt_bounce_kernel" in key)
-    total, _ = _device_ms(lambda: MKC.trace_paths_fused_sorted(mesh, *hash_rays, max_depth=DEPTH),
-                          5, lambda key: True)
-    out.update(k6_pass=k6, k6_records=n6, sorted_rest=total - k6)
-    n = W * H * SPP
+            (fused_name, smp + ">"))
+
+    def sorted_route():
+        MKC.trace_paths_fused_sorted(mesh, *hash_rays, max_depth=DEPTH)
+
+    out["k6_pass"] = DEPTH * S.kernel_ms(sorted_route, 5, "::pt_bounce_kernel<", per_call=DEPTH)
+    _, rows = S.profiled(lambda: [sorted_route() for _ in range(5)])
+    total = sum(e.self_device_time_total for e in S.device_rows(rows)) / 1e3 / 5
+    out["sorted_rest"] = total - out["k6_pass"]
+    n = S.W * S.H * SPP
     out["sorted_mpaths"], out["fused_mpaths"] = [], []
     for key in ("sorted_mpaths", "fused_mpaths", "fused_mpaths", "sorted_mpaths"):
         fn = MKC.trace_paths_fused_sorted if key == "sorted_mpaths" else MKC.trace_paths_fused
@@ -134,12 +107,12 @@ def measure() -> dict:
         torch.cuda.synchronize()
         out[key].append(n / (time.perf_counter() - t0) / 1e6)
     cfg = MK.MegakernelConfig(fused="on")
-    MK.render(mesh, W, H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
+    MK.render(mesh, S.W, S.H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
     out["render_on_mpaths"] = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        MK.render(mesh, W, H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
+        MK.render(mesh, S.W, S.H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
         torch.cuda.synchronize()
         out["render_on_mpaths"].append(n / (time.perf_counter() - t0) / 1e6)
     return out
@@ -158,8 +131,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(S.card_line())
     dirs = {"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
     runs = {"old": [], "new": []}
     for which in ("old", "new", "new", "old"):

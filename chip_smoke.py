@@ -117,6 +117,7 @@ HALTON_BASE2_OPS = 14
 # tf and the compare. The bounds take the work this run's data needs
 # (tests made, boxes tested, hits shaded), counted on the plain versions
 # or, for traversals, on traverse_packed_ref over a sample of the rays
+# (real triangles only: pad rows are not work the function needs)
 MT_FLOPS = 45
 SHADE_FLOPS = 800
 SLAB_FLOPS = 25
@@ -363,12 +364,13 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
 def traversal_counts(scene, o, d, mode="closest", t_max=None):
     """(boxes slab-tested, triangles tested) by the per-ray traversal of
     these rays, walked by ``traverse_packed_ref`` (the kernels' numpy
-    oracle, step for step)."""
+    oracle, step for step). Only real triangles count: a leaf's pad rows
+    never hit, so testing them is not work the traversal needs."""
     from cuda_optix_pathtracing_tpu_torch.ops.bvh import traverse_packed_ref
 
     b = scene.bvh
     tables = (b.box, b.meta, scene.tri_v0, scene.tri_e0, scene.tri_e1)
-    *_, c = traverse_packed_ref(*tables, o, d, mode, t_max)
+    *_, c = traverse_packed_ref(*tables, o, d, mode, t_max, perm=b.perm)
     return int(c["slabs"].sum()), int(c["tests"].sum())
 
 
@@ -1310,29 +1312,29 @@ def main() -> int:
     # bytes: o, d in (24); t (4) + index (4) out, or t_max in (4) + flag out (4)
     b_closest = bound(n1 * n_tris * MT_FLOPS, n1 * 32)
     b_any = bound(any_tests * MT_FLOPS, n1 * 32)
-    # the BVH kernels read their tables once: nodes (512 B box + 64 B meta)
-    # and packed rows (36 B; the fused kernel also the 4 B material id and
-    # its shading tables)
-    bvh_bytes = mesh.bvh.box.numel() * 4 + mesh.bvh.meta.numel() * 4 + mesh.num_triangles * 36
+    # the BVH kernels read their tables once, as much of them as a
+    # traversal needs: per node the 48 slab floats, 8 slot words and 8
+    # permcodes (256 B; the rest of the (M, 128) box is padding), per real
+    # triangle (pad rows never hit) v0, e0 and e1 (36 B); the fused kernels
+    # also the 4 B material id and the shading tables
+    n_real = int((mesh_main.bvh.perm >= 0).sum())
+    bvh_bytes = mesh_main.bvh.num_nodes * 256 + n_real * 36
     b_bvh_closest = bound(sum(w[0] for w in work_c) / len(work_c), n_bvh * 32 + bvh_bytes)
     b_bvh_any = bound(sum(w[0] for w in work_a) / len(work_a), n_bvh * 32 + bvh_bytes)
     b_fused_h = bound(htests * MT_FLOPS + hhits * SHADE_FLOPS, n1 * (24 + 12 + 12), hint)
-    # kernels 5 and 6 read the compact tables once: 256 B nodes and 48 B
-    # rows, the 4 B material ids and the shading tables
     scale = n_pass / len(fb_pick)
-    cbvh_bytes = 4 * (mesh_main.bvh.nodes.numel() + mesh_main.tri_rows.numel())
-    shade_bytes = mesh.num_triangles * 4 + mesh.shade_tables.numel() * 4
+    cbvh_bytes = bvh_bytes + n_real * 4 + mesh_main.shade_tables.numel() * 4
     flops_fbvh = scale * (bslabs * SLAB_FLOPS + btests * MT_FLOPS + bhits * SHADE_FLOPS)
-    b_fused_bvh = bound(flops_fbvh, n_pass * 48 + cbvh_bytes + shade_bytes)
+    b_fused_bvh = bound(flops_fbvh, n_pass * 48 + cbvh_bytes)
     flops_fbvh_h = scale * (bhslabs * SLAB_FLOPS + bhtests * MT_FLOPS + bhh * SHADE_FLOPS)
     hint_bvh = scale * bh_work[0][0] * halton_int_ops(R, h0_dims)
-    b_fused_bvh_h = bound(flops_fbvh_h, n_pass * 48 + cbvh_bytes + shade_bytes, hint_bvh)
+    b_fused_bvh_h = bound(flops_fbvh_h, n_pass * 48 + cbvh_bytes, hint_bvh)
     # kernel 6 per depth: live paths read 20 words of their row and write 17
     # and a key, dead paths read their flag and write a key, each reads its
     # row index after depth 0; the tables once
     k6_scale = n_pass / BOUND_SAMPLE
     k6_b = [live * K6_BYTES_LIVE + (n_pass - live) * K6_BYTES_DEAD
-            + (n_pass * K6_BYTES_PERM if dep else 0) + cbvh_bytes + shade_bytes
+            + (n_pass * K6_BYTES_PERM if dep else 0) + cbvh_bytes
             for dep, live in enumerate(k6_live)]
     k6_bounds = [bound(k6_scale * (sl * SLAB_FLOPS + te * MT_FLOPS + hi * SHADE_FLOPS), b)
                  for hi, sl, te, b in zip(*k6_work, k6_b)]

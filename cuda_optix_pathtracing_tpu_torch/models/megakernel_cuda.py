@@ -121,11 +121,6 @@ def _bvh_tables(scene: Scene):
     """The BVH kernels' table arguments: the compact nodes, the triangle
     rows and the material ids."""
     nodes, rows = scene.bvh.nodes, scene.tri_rows
-    if nodes is None or rows is None:
-        raise ValueError(
-            "the scene has no compact BVH tables; build it with scene_from_host or "
-            "scene_from_arrays (ops/bvh.pack_nodes, pack_tri_rows)"
-        )
     if not (nodes.is_contiguous() and rows.is_contiguous()):
         raise ValueError("the compact BVH tables must be contiguous")
     if nodes.shape[0] >= 1 << 24:  # a stack entry holds the node in 24 bits

@@ -40,7 +40,7 @@ per level), and gives ``traverse_packed_ref``'s t and rows.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -95,17 +95,26 @@ def build_bvh(v0, e0, e1) -> BVHArrays:
 
 class PackedBVH(NamedTuple):
     """Node tables on the scene's device, in the reference's layout (see
-    the module docstring), plus the host permutation and the tree's depth."""
+    the module docstring), plus the host permutation, the tree's depth and
+    the fused kernels' compact node table. ``packed_bvh`` makes one."""
 
     box: torch.Tensor  # (M, 128) f32
     meta: torch.Tensor  # (M*16,) i32
     perm: np.ndarray  # (Tp,) i32 host: packed row → original tri, -1 = pad
     depth: int  # levels of internal nodes from the root (stack_fits)
-    nodes: Optional[torch.Tensor] = None  # (M, 64) compact nodes (pack_nodes)
+    nodes: torch.Tensor  # (M, 64) compact nodes (pack_nodes)
 
     @property
     def num_nodes(self):
         return self.box.shape[0]
+
+
+def packed_bvh(box: torch.Tensor, meta: torch.Tensor, perm) -> PackedBVH:
+    """PackedBVH of the reference-layout tables ``box`` and ``meta`` (on
+    the scene's device) and the host ``perm``: their depth and compact
+    nodes built here, once per scene."""
+    perm = np.asarray(perm, np.int32)
+    return PackedBVH(box, meta, perm, tree_depth(meta.cpu()), pack_nodes(box, meta, perm))
 
 
 def _permcodes(lo, hi, valid):
@@ -145,7 +154,8 @@ def tree_depth(meta) -> int:
 
 def pack_bvh(bvh: BVHArrays, device="cpu") -> PackedBVH:
     """Re-base leaves onto LEAF_SIZE-padded blocks and pack the node
-    tables (box rows + slotword/permcode meta) onto ``device``."""
+    tables (box rows + slotword/permcode meta, and their compact copy)
+    onto ``device``."""
     ls = np.asarray(bvh.child_leaf_start)
     lc = np.asarray(bvh.child_leaf_count)
     cn = np.asarray(bvh.child_node)
@@ -178,11 +188,8 @@ def pack_bvh(bvh: BVHArrays, device="cpu") -> PackedBVH:
     meta = np.zeros((m, 16), np.int32)
     meta[:, 0:8] = ((payload << 6) | code).astype(np.int32)
     meta[:, 8:16] = _permcodes(lo, hi, valid)
-    meta = meta.reshape(-1)
-    return PackedBVH(
-        torch.as_tensor(box, device=device), torch.as_tensor(meta, device=device),
-        perm, tree_depth(meta),
-    )
+    return packed_bvh(torch.as_tensor(box, device=device),
+                      torch.as_tensor(meta.reshape(-1), device=device), perm)
 
 
 def pack_nodes(box, meta, perm) -> torch.Tensor:
@@ -268,7 +275,8 @@ def _mt(o, d, v0, e0, e1):
     return np.where(valid, t, _F(BIG_T))
 
 
-def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest", t_max=None):
+def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest", t_max=None,
+                        perm=None):
     """Per-ray stack traversal of the packed tables, as the CUDA kernel
     does it (all rays step together, each with its own stack):
 
@@ -285,7 +293,10 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
     Returns ``(t, i, counts)`` for "closest" (BIG_T and row 0 on a miss)
     or ``(occluded, counts)`` for "any"; ``counts`` holds per-ray int64
     arrays: ``pops`` (internal nodes expanded), ``slabs`` (child slab
-    tests) and ``tests`` (ray-triangle tests)."""
+    tests) and ``tests`` (ray-triangle tests). Given the host ``perm``,
+    ``tests`` counts real rows only (``perm`` ≥ 0): a leaf's pad rows follow
+    its real ones and never hit, so these are the tests a traversal needs,
+    where ``bvh_trace`` makes all LEAF_SIZE."""
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     anyhit = mode == "any"
@@ -314,6 +325,7 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
     occ = np.zeros(n, bool)
     counts = {k: np.zeros(n, np.int64) for k in ("pops", "slabs", "tests")}
     rows16 = np.arange(LEAF_SIZE)
+    real = np.ones(v0.shape[0], bool) if perm is None else np.asarray(perm) >= 0
     while True:
         r = np.nonzero((sp > 0) & ~occ)[0]
         if r.size == 0:
@@ -330,10 +342,11 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
         if rl.size:
             rows = payload[lf][:, None] * 8 + rows16  # (nl, 16)
             t = _mt(o[rl], d[rl], v0[rows], e0[rows], e1[rows])
+            n_real = real[rows].sum(axis=1)
             if anyhit:
                 hit = t < limit[lf][:, None]
                 found = hit.any(axis=1)
-                counts["tests"][rl] += np.where(found, np.argmax(hit, axis=1) + 1, LEAF_SIZE)
+                counts["tests"][rl] += np.where(found, np.argmax(hit, axis=1) + 1, n_real)
                 occ[rl] |= found
             else:
                 k = np.argmin(t, axis=1)
@@ -341,7 +354,7 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
                 better = tk < t_best[rl]
                 t_best[rl] = np.where(better, tk, t_best[rl])
                 i_best[rl] = np.where(better, rows[np.arange(rl.size), k], i_best[rl])
-                counts["tests"][rl] += LEAF_SIZE
+                counts["tests"][rl] += n_real
 
         ri = r[~lf]
         if ri.size:
@@ -392,8 +405,11 @@ def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
       makes with its stored tn.
 
     The visits, culls and leaf tests are ``traverse_packed_ref``'s, in the
-    same order, so it returns the same ``(t, i)`` for "closest" (BIG_T and
-    row 0 on a miss) or occlusion flags for "any"."""
+    same order, so it returns the same ``(t, i, counts)`` for "closest"
+    (BIG_T and row 0 on a miss) or ``(occluded, counts)`` for "any";
+    ``counts`` holds per-ray ``pops`` (internal nodes expanded) and
+    ``tests`` (the rows tested, which stop at each leaf's last real row:
+    ``traverse_packed_ref``'s counts given ``perm``)."""
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     anyhit = mode == "any"
@@ -413,6 +429,7 @@ def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
     t_best = np.full(n, BIG_T, _F)
     i_best = np.zeros(n, np.int64)
     occ = np.zeros(n, bool)
+    counts = {k: np.zeros(n, np.int64) for k in ("pops", "tests")}
     for r in range(n):
         oct_ = int(d[r, 0] < 0) | int(d[r, 1] < 0) << 1 | int(d[r, 2] < 0) << 2
         tb = limit0[r] if anyhit else _F(BIG_T)
@@ -427,6 +444,7 @@ def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
             return (tn <= tf) & ((words[node, :8] & 3) != CODE_EMPTY)
 
         def expand(node):
+            counts["pops"][r] += 1
             pc, ok = int(words[node, 8 + oct_]), passes(node)
             return [c for c in ((pc >> (21 - 3 * j)) & 7 for j in range(BRANCHING)) if ok[c]]
 
@@ -445,8 +463,10 @@ def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
                 k = np.arange((w >> 6) * 8, (w >> 6) * 8 + ((w >> 2) & 15) + 1)
                 t = _mt(o[r:r + 1], d[r:r + 1], v0[k][None], e0[k][None], e1[k][None])[0]
                 if anyhit and (t < tb).any():
+                    counts["tests"][r] += int(np.argmax(t < tb)) + 1
                     occ[r] = True
                     break
+                counts["tests"][r] += k.size
                 j = int(np.argmin(t))
                 if not anyhit and t[j] < tb:
                     tb, i_best[r] = t[j], k[j]
@@ -458,5 +478,5 @@ def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
             node, left, fresh = w >> 6, expand(w >> 6), True
         t_best[r] = tb
     if anyhit:
-        return occ
-    return t_best, i_best
+        return occ, counts
+    return t_best, i_best, counts

@@ -35,10 +35,9 @@ from ..ops.bvh import (
     PackedBVH,
     build_bvh,
     pack_bvh,
-    pack_nodes,
     pack_tri_rows,
+    packed_bvh,
     permute_tri_array,
-    tree_depth,
 )
 from ..ops.camera import CameraConfig, camera_from_raster, world_from_camera
 from ..ops.envmap import EnvMap, constant_envmap, make_constant_envmap
@@ -202,10 +201,11 @@ def scene_from_host(
 
     cam = hs.camera
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    tv0, te0, te1 = t(v0), t(e0), t(e1)
     return with_kernel_tables(Scene(
-        tri_v0=t(v0),
-        tri_e0=t(e0),
-        tri_e1=t(e1),
+        tri_v0=tv0,
+        tri_e0=te0,
+        tri_e1=te1,
         tri_mat=t(tri_mat),
         materials=make_material_table(hs.materials, device),
         lights=make_light_table(lights, device),
@@ -218,23 +218,21 @@ def scene_from_host(
         world_from_cam=t(world_from_camera(cam.direction, cam.position)),
         emissive=emissive,
         bvh=bvh,
+        tri_rows=None if bvh is None else pack_tri_rows(tv0, te0, te1),
     ))
 
 
 def with_kernel_tables(scene: Scene) -> Scene:
     """``scene`` with the tables its kernels and queries read, built once
     per scene so that no launch builds them: the fused kernel's shading
-    tables, and a BVH scene's ``bounds`` and the fused kernels' compact
-    node table (``bvh.nodes``) and triangle rows (``tri_rows``)."""
-    bvh = bounds = rows = None
+    tables, and a BVH scene's ``bounds``. (A BVH scene's compact nodes and
+    triangle rows are built with its ``bvh`` and ``tri_*`` arrays.)"""
+    bounds = None
     if scene.bvh is not None:
-        tris = (scene.tri_v0, scene.tri_e0, scene.tri_e1)
-        bounds = torch.stack(scene_bounds(*tris))
-        bvh = scene.bvh._replace(nodes=pack_nodes(scene.bvh.box, scene.bvh.meta, scene.bvh.perm))
-        rows = pack_tri_rows(*tris)
+        bounds = torch.stack(scene_bounds(scene.tri_v0, scene.tri_e0, scene.tri_e1))
     return scene._replace(
         shade_tables=pack_shade_tables(scene.materials, scene.lights, scene.env, scene.emissive),
-        bounds=bounds, bvh=bvh, tri_rows=rows,
+        bounds=bounds,
     )
 
 
@@ -294,15 +292,12 @@ def scene_from_arrays(fields: dict, device) -> Scene:
         )
     bvh = None
     if "bvh.meta" in f:
-        meta = f["bvh.meta"].astype(np.int32)
-        bvh = PackedBVH(
-            t(f["bvh.box"]), t(meta, np.int32), f["bvh.perm"].astype(np.int32),
-            tree_depth(meta),
-        )
+        bvh = packed_bvh(t(f["bvh.box"]), t(f["bvh.meta"], np.int32), f["bvh.perm"])
+    tv0, te0, te1 = t(f["tri_v0"]), t(f["tri_e0"]), t(f["tri_e1"])
     return with_kernel_tables(Scene(
-        tri_v0=t(f["tri_v0"]),
-        tri_e0=t(f["tri_e0"]),
-        tri_e1=t(f["tri_e1"]),
+        tri_v0=tv0,
+        tri_e0=te0,
+        tri_e1=te1,
         tri_mat=t(f["tri_mat"], np.int32),
         materials=materials,
         lights=lights,
@@ -313,4 +308,5 @@ def scene_from_arrays(fields: dict, device) -> Scene:
         world_from_cam=t(f["world_from_cam"]),
         emissive=emissive,
         bvh=bvh,
+        tri_rows=None if bvh is None else pack_tri_rows(tv0, te0, te1),
     ))

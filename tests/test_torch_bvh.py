@@ -222,8 +222,7 @@ def _compact_case(name):
     v0, e0, e1 = random_soup(t)
     packed = TB.pack_bvh(TB.build_bvh(v0, e0, e1))
     tris = tuple(torch.from_numpy(TB.permute_tri_array(a, packed.perm)) for a in (v0, e0, e1))
-    nodes = TB.pack_nodes(packed.box, packed.meta, packed.perm)
-    return packed, tris, nodes, TB.pack_tri_rows(*tris), random_rays(n)
+    return packed, tris, packed.nodes, TB.pack_tri_rows(*tris), random_rays(n)
 
 
 @pytest.mark.parametrize("name", ["soup5", "soup40", "soup300", "mesh16"])
@@ -254,15 +253,34 @@ def test_compact_walk_matches_packed_oracle(name):
     traversal) gives traverse_packed_ref's t and rows bit for bit, and its
     occlusion flags."""
     packed, tris, nodes, rows, (o, d, t_max) = _compact_case(name)
-    t, i = TB.traverse_compact_ref(nodes, rows, o, d)
+    t, i, _ = TB.traverse_compact_ref(nodes, rows, o, d)
     tr, ir, _ = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d)
     assert (tr < BIG_T).sum() > 0
     np.testing.assert_array_equal(t, tr)
     np.testing.assert_array_equal(i, ir)
-    occ = TB.traverse_compact_ref(nodes, rows, o, d, "any", t_max)
+    occ, _ = TB.traverse_compact_ref(nodes, rows, o, d, "any", t_max)
     occ_r, _ = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d, "any", t_max)
     assert 0 < occ_r.sum() < occ_r.size
     np.testing.assert_array_equal(occ, occ_r)
+
+
+@pytest.mark.parametrize("name", ["soup40", "soup300", "mesh16"])
+def test_compact_walk_counts_the_tests_a_traversal_needs(name):
+    """The compact walk's counts (internal nodes expanded, rows tested up
+    to each leaf's last real row) equal traverse_packed_ref's given perm,
+    which counts no pad row: the same nodes as bvh_trace's walk, fewer
+    tests than its LEAF_SIZE a leaf."""
+    packed, tris, nodes, rows, (o, d, t_max) = _compact_case(name)
+    for mode, tm in (("closest", None), ("any", t_max)):
+        *_, c = TB.traverse_compact_ref(nodes, rows, o, d, mode, tm)
+        *_, c_real = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d, mode, tm,
+                                            perm=packed.perm)
+        *_, c_all = TB.traverse_packed_ref(packed.box, packed.meta, *tris, o, d, mode, tm)
+        np.testing.assert_array_equal(c["pops"], c_real["pops"])
+        np.testing.assert_array_equal(c["tests"], c_real["tests"])
+        np.testing.assert_array_equal(c_real["pops"], c_all["pops"])
+        assert (c_real["tests"] <= c_all["tests"]).all()
+        assert c_real["tests"].sum() < c_all["tests"].sum(), mode
 
 
 def test_compact_tables_built_once_per_scene(mesh8):

@@ -127,22 +127,33 @@ def test_bvh_kernels_match_plain_and_oracle(dev, mesh):
         np.testing.assert_array_equal(occ.cpu().numpy() > 0, occ_r)
 
 
-# the Cornell box, the conductor / Lambert / area-light scene, and the mesh
+# the Cornell box, the conductor / Lambert / area-light scene, the mesh
 # Cornell box through the fused kernel's BVH mode and through the
 # wavefront (fused="off": kernel 4 on sorted rays, and on rays in their
-# own order with sort_rays="off")
+# own order with sort_rays="off"), and a brute-force scene whose tables
+# need more than 48 KB of shared memory (the mesh Cornell box at
+# subdivision 24 without a BVH, 87.6 KB: the kernel raises its limit)
 @pytest.mark.parametrize(
-    "case", ["cornell", "mixed", "mesh", "mesh_wavefront", "mesh_wavefront_unsorted"]
+    "case", ["cornell", "mixed", "mesh", "mesh_wavefront", "mesh_wavefront_unsorted",
+             "tables_over_48kb"]
 )
 def test_fused_kernel_matches_trace_paths(dev, scene, mesh, case):
     from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
-    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import (
+        MAX_SMEM_BYTES,
+        table_bytes,
+        trace_paths_fused,
+    )
     from cuda_optix_pathtracing_tpu_torch.ops.bvh_cuda import bvh_closest_raw
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
 
     if case == "mixed":
         scene = _mixed_scene(dev)
     if case.startswith("mesh"):
         scene = mesh
+    if case == "tables_over_48kb":
+        scene = cornell_box_mesh(32, 32, subdiv=24, use_bvh=False, device=dev)
+        assert scene.bvh is None and 48 * 1024 < table_bytes(scene) <= MAX_SMEM_BYTES
     spp = 4
     px, py, sample, o, d = _camera_rays(dev, scene, spp)
     before = trace_paths_fused.launches, bvh_closest_raw.launches
