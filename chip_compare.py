@@ -1,36 +1,44 @@
 #!/usr/bin/env python3
-"""Time the BVH path-tracing kernels of two checkouts of the port on one
-NVIDIA GPU, in turns.
+"""Time the port's redesigned kernels in two or more checkouts on one
+NVIDIA GPU, in turns, and show whether their outputs agree bit for bit.
 
-    python3 chip_compare.py OLD_DIR NEW_DIR
+    python3 chip_compare.py [--only GROUPS] [--rounds N] DIR_A DIR_B [DIR_C ...]
 
-OLD_DIR and NEW_DIR are roots of two checkouts (for example a ``git
-archive`` of the parent commit and this tree). Each turn (old, new, new,
-old) is a process of its own, run from that checkout so it imports that
-checkout's package and builds that checkout's kernels. On the mesh
-Cornell box of ``bench.py``'s second leg (subdivision 64, 256², 16 spp as
-one pass of 1,048,576 camera rays in Morton order, depth 5) a turn
-measures:
+Each DIR is the root of a checkout (for example a ``git archive`` of the
+parent commit and this tree, or copies of this tree with one design
+choice undone). The turns run every checkout twice, mirrored (A, B, B, A
+for two; A, B, C, C, B, A for three), each turn a process of its own run
+from that checkout, so it imports that checkout's package and builds that
+checkout's kernels (all checkouts' kernels are built first, at once).
+``--rounds N`` runs the mirrored order N times (default 1), which gives
+2N pairs of each checkout with the first, alternating which runs first.
+``--only`` takes a comma-separated subset of the groups (default: all):
 
-- the fused BVH kernel's device time per 1,048,576-path launch
-  (``torch.profiler``), hash and Halton, and hash at ``max_depth=1``,
-  where every path makes exactly one bounce and no lane of a warp waits
-  for another path;
-- the depth-sorted route ``trace_paths_fused_sorted`` under the profiler:
-  the single-bounce kernel's device time per pass and that of everything
-  else (the sorts between depths, state packing and reading);
-- the host-clock Mpaths/s of the sorted and the fused route on the same
-  rays, in turns, and of the mesh render with ``fused="on"`` after one
-  untimed render;
-- a SHA-256 digest of each route's radiance (fused hash and Halton,
-  sorted hash), so that the turns show whether the two checkouts give
-  the same output bit for bit.
+- ``k1``, the brute-force fused kernel (kernels 1 and 1h): the Cornell
+  box at 256², one spp (65,536 camera paths, the main path's launch),
+  depth 5: device time per launch (``torch.profiler``), hash and Halton,
+  and a SHA-256 digest of each one's radiance;
+- ``k4``, the traversal kernels (kernel 4): every closest-hit and any-hit
+  launch of one ``fused="off"`` render of the mesh leg (below), recorded
+  (``chip_smoke.record_bvh_launches``) and replayed: device time per
+  launch, digests of the (t, row) and the flags of all launches, and of
+  the render's film;
+- ``k56``, the BVH path-tracing kernels (kernels 5 and 6) on the mesh
+  Cornell box of ``bench.py``'s second leg (subdivision 64, 256², 16 spp
+  as one pass of 1,048,576 camera rays in Morton order, depth 5): the
+  fused kernel per launch, hash and Halton, and hash at ``max_depth=1``;
+  the depth-sorted route's single-bounce kernel per pass and the rest of
+  the route (sorts, state packing and reading); the host-clock Mpaths/s
+  of the sorted and the fused route in turns and of the mesh render with
+  ``fused="on"``; digests of each route's radiance.
 
 A process prints one JSON line; this script prints each turn's line,
-the means by checkout and whether the digests agree across turns. It
-needs one card and prints its name and power limit first. The camera
-rays and the profiler timing are ``chip_smoke.py``'s (``camera_rays``,
-``kernel_ms``, ``profiled``), from the directory of this script.
+the means by checkout, for each timing of each checkout after the first
+its median and quartiles beside the first's and the pairs in which it
+was lower, and, for each digest, whether it is equal in all turns. It needs one card and prints its name and power limit first. The
+camera rays and the profiler timing are ``chip_smoke.py``'s
+(``camera_rays``, ``kernel_ms``, ``profiled``), from the directory of
+this script.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -46,49 +55,95 @@ import chip_smoke as S
 
 SPP = 16
 DEPTH = 5
+GROUPS = ("k1", "k4", "k56")
 
 
-def mesh_leg():
-    """(MK, MKC, the mesh Cornell box at subdivision 64, its hash and
-    Halton camera rays): the package of the current directory's checkout."""
-    import torch
-
+def package():
+    """(MK, MKC, cornell_box, cornell_box_mesh) of the current directory's
+    checkout."""
     sys.path.insert(0, os.getcwd())
     from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
     from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
-    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh
 
-    mesh = cornell_box_mesh(S.W, S.H, subdiv=S.MESH_SUBDIV, device=torch.device("cuda"))
-    rays = {smp: S.camera_rays(mesh, SPP, morton=True, sampler=smp) for smp in ("hash", "halton")}
-    return MK, MKC, mesh, rays["hash"], rays["halton"]
+    return MK, MKC, cornell_box, cornell_box_mesh
 
 
-def measure() -> dict:
-    """One turn, run from the root of the checkout to measure."""
+def digest(*xs) -> str:
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def measure_k1(out: dict) -> None:
     import torch
 
-    MK, MKC, mesh, hash_rays, halton_rays = mesh_leg()
-    # the fused BVH kernel's name, before and after it got its own body
-    src = os.path.join("cuda_optix_pathtracing_tpu_torch", "csrc", "megakernel.cu")
-    with open(src) as f:
-        fused_name = "::pt_fused_bvh_kernel<" if "pt_fused_bvh_kernel" in f.read() else "BvhGeo,"
+    MK, MKC, cornell_box, _ = package()
+    scene = cornell_box(S.W, S.H, device=torch.device("cuda"))
+    for smp, policy in (("hash", "HashRng>"), ("halton", "HaltonRng>")):
+        rays = S.camera_rays(scene, 1, sampler=smp)
 
-    def digest(x):
-        return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+        def run():
+            return MKC.trace_paths_fused(scene, *rays, max_depth=DEPTH, sampler=smp)
 
-    out = {"kind": torch.cuda.get_device_name(0),
-           "digest_fused_hash": digest(MKC.trace_paths_fused(mesh, *hash_rays, max_depth=DEPTH)),
-           "digest_fused_halton": digest(MKC.trace_paths_fused(mesh, *halton_rays,
-                                                               max_depth=DEPTH, sampler="halton")),
-           "digest_sorted_hash": digest(MKC.trace_paths_fused_sorted(mesh, *hash_rays,
-                                                                     max_depth=DEPTH))}
+        out[f"digest_k1_{smp}"] = digest(run())
+        out[f"k1_{smp}"] = S.kernel_ms(run, 20, ("::pt_fused_kernel<", "BruteGeo", policy))
+
+
+def measure_k4(out: dict) -> None:
+    import torch
+
+    MK, MKC, _, cornell_box_mesh = package()
+    mesh = cornell_box_mesh(S.W, S.H, subdiv=S.MESH_SUBDIV, device=torch.device("cuda"))
+    cfg = MK.MegakernelConfig(fused="off")
+    film = {}
+
+    def render():
+        film["off"] = MK.render(mesh, S.W, S.H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
+
+    rec = S.record_bvh_launches(MK, render)
+    BV = MK.bvh_cuda
+    out["digest_k4_film_off"] = digest(film["off"].mean)
+    closest = [BV.bvh_closest_raw(o, d, mesh) for o, d in rec["closest"]]
+    anyhit = [BV.bvh_any_raw(o, d, mesh, tm) for o, d, tm in rec["any"]]
+    out["digest_k4_closest"] = digest(*(x for pair in closest for x in pair))
+    out["digest_k4_any"] = digest(*anyhit)
+
+    def replay_closest():
+        for o, d in rec["closest"]:
+            BV.bvh_closest_raw(o, d, mesh)
+
+    def replay_any():
+        for o, d, tm in rec["any"]:
+            BV.bvh_any_raw(o, d, mesh, tm)
+
+    out["k4_closest"] = S.kernel_ms(replay_closest, 4, "::bvh_closest_kernel(",
+                                    per_call=len(rec["closest"]))
+    out["k4_any"] = S.kernel_ms(replay_any, 4, "::bvh_anyhit_kernel(", per_call=len(rec["any"]))
+
+
+def measure_k56(out: dict) -> None:
+    import torch
+
+    MK, MKC, _, cornell_box_mesh = package()
+    mesh = cornell_box_mesh(S.W, S.H, subdiv=S.MESH_SUBDIV, device=torch.device("cuda"))
+    hash_rays, halton_rays = (S.camera_rays(mesh, SPP, morton=True, sampler=smp)
+                              for smp in ("hash", "halton"))
+    out.update(
+        digest_fused_hash=digest(MKC.trace_paths_fused(mesh, *hash_rays, max_depth=DEPTH)),
+        digest_fused_halton=digest(MKC.trace_paths_fused(mesh, *halton_rays, max_depth=DEPTH,
+                                                         sampler="halton")),
+        digest_sorted_hash=digest(MKC.trace_paths_fused_sorted(mesh, *hash_rays,
+                                                               max_depth=DEPTH)),
+    )
     for label, smp, r, depth in (("k5_hash", "HashRng", hash_rays, DEPTH),
                                  ("k5_halton", "HaltonRng", halton_rays, DEPTH),
                                  ("k5_hash_depth1", "HashRng", hash_rays, 1)):
         sampler = "halton" if smp == "HaltonRng" else "hash"
         out[label] = S.kernel_ms(
             lambda: MKC.trace_paths_fused(mesh, *r, max_depth=depth, sampler=sampler), 10,
-            (fused_name, smp + ">"))
+            ("::pt_fused_bvh_kernel<", smp + ">"))
 
     def sorted_route():
         MKC.trace_paths_fused_sorted(mesh, *hash_rays, max_depth=DEPTH)
@@ -115,15 +170,40 @@ def measure() -> dict:
         MK.render(mesh, S.W, S.H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
         torch.cuda.synchronize()
         out["render_on_mpaths"].append(n / (time.perf_counter() - t0) / 1e6)
+
+
+def measure(groups) -> dict:
+    """One turn, run from the root of the checkout to measure."""
+    import torch
+
+    out = {"kind": torch.cuda.get_device_name(0)}
+    for g in groups:
+        {"k1": measure_k1, "k4": measure_k4, "k56": measure_k56}[g](out)
     return out
 
 
+def build(root: str) -> subprocess.Popen:
+    """Start building every CUDA source of the checkout at ``root``."""
+    code = ("import sys; sys.path.insert(0, '.'); "
+            "from cuda_optix_pathtracing_tpu_torch.ops import _cuda_build as B; "
+            "B.build_all(sorted(p.stem for p in B.CSRC.glob('*.cu')))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--measure":
+    if len(argv) == 3 and argv[0] == "--measure":
         os.chdir(argv[1])
-        print(json.dumps(measure()))
+        print(json.dumps(measure(argv[2].split(","))))
         return 0
-    if len(argv) != 2:
+    groups, rounds = list(GROUPS), 1
+    while len(argv) > 1 and argv[0] in ("--only", "--rounds"):
+        if argv[0] == "--only":
+            groups = argv[1].split(",")
+        else:
+            rounds = int(argv[1])
+        argv = argv[2:]
+    if len(argv) < 2 or not set(groups) <= set(GROUPS):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -132,26 +212,45 @@ def main(argv) -> int:
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 2
     print(S.card_line())
-    dirs = {"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
-    runs = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", dirs[which]],
-                              capture_output=True, text=True)
+    dirs = [os.path.abspath(a) for a in argv]
+    t0 = time.perf_counter()
+    for root, proc in [(root, build(root)) for root in dirs]:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"build failed in {root}:\n{log[-4000:]}", file=sys.stderr)
+            return 1
+    print(f"built the kernels of {len(dirs)} checkouts at once in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = {root: [] for root in dirs}
+    for root in (dirs + dirs[::-1]) * rounds:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
+                               ",".join(groups)], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
         line = proc.stdout.strip().splitlines()[-1]
-        print(which, line)
-        runs[which].append(json.loads(line))
-    for which, rs in runs.items():
+        print(root, line)
+        runs[root].append(json.loads(line))
+    for root, rs in runs.items():
         means = {}
         for key, val in rs[0].items():
             if isinstance(val, (int, float)):
                 means[key] = sum(r[key] for r in rs) / len(rs)
             elif isinstance(val, list):
                 means[key] = sum(sum(r[key]) / len(r[key]) for r in rs) / len(rs)
-        print(f"mean {which}: {json.dumps(means)}")
-    every = runs["old"] + runs["new"]
+        print(f"mean {root}: {json.dumps(means)}")
+    base = runs[dirs[0]]
+    for root in dirs[1:]:
+        for key, val in base[0].items():
+            if not isinstance(val, float) or len(base) < 2:
+                continue
+            a, b = [r[key] for r in base], [r[key] for r in runs[root]]
+            qa, qb = statistics.quantiles(a, n=4), statistics.quantiles(b, n=4)
+            lower = sum(y < x for x, y in zip(a, b))
+            print(f"pairs {key}: {root} median {statistics.median(b):.6f} "
+                  f"[{qb[0]:.6f}, {qb[2]:.6f}] against {statistics.median(a):.6f} "
+                  f"[{qa[0]:.6f}, {qa[2]:.6f}], lower in {lower} of {len(a)} pairs")
+    every = [r for rs in runs.values() for r in rs]
     for key in sorted(k for k in every[0] if k.startswith("digest_")):
         print(f"{key}: {'equal' if len({r[key] for r in every}) == 1 else 'differ'} in all turns")
     return 0

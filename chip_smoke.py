@@ -14,7 +14,8 @@ Two scenes, each down every route of the port:
   (``cornell_box_mesh(256, 256, subdiv=64)``: 16,138 triangles in 23,568
   packed rows, a 432-node BVH): with ``fused="off"`` the sorted wavefront,
   whose queries go to the traversal kernels ``bvh_closest`` and
-  ``bvh_anyhit``; with ``fused="on"`` the fused kernel's BVH mode
+  ``bvh_anyhit`` (over the scene's compact tables, as the fused BVH
+  kernels); with ``fused="on"`` the fused kernel's BVH mode
   ``pt_fused_bvh`` (hash and Halton; persistent blocks that regenerate
   paths over the compact node table); and the
   depth-sorted fused wavefront ``trace_paths_fused_sorted``, one launch of
@@ -46,10 +47,13 @@ Phases (each fails loudly; there is no CPU fallback):
    the same rays bit for bit;
 4. the mesh kernels against their plain versions at the main path's own
    launches, recorded from one more render of each route: kernel 4 at a
-   1,048,576-ray launch (sorted, with parked dead rays), kernel 5 at the
-   1,048,576-path launch (every 8th path held to ``trace_paths``); then
-   timing lines: each kernel's device time per launch
-   (torch.profiler; kernels 5 and 6 at their 1,048,576-path launches),
+   1,048,576-ray launch (sorted, with parked dead rays; every 512th ray
+   also held to the numpy oracle ``traverse_packed_ref`` bit for bit),
+   kernel 5 at the 1,048,576-path launch (every 8th path held to
+   ``trace_paths``); then timing lines: each kernel's device time per
+   launch (torch.profiler; kernels 5 and 6 at their 1,048,576-path
+   launches; kernel 1 also at 1,048,576 paths, 16 spp in one launch, to
+   tell the fill of the main path's one-wave launch from the cost per path),
    the wrapper call's time (CUDA events), its plain version's time,
    launches per spp and its bound; the single-bounce kernel's device time
    (CUDA events around launches queued behind a device sleep) and bound
@@ -1136,8 +1140,8 @@ def main() -> int:
                                                        max_depth=DEPTH, sampler="halton"), 1),
     }
     kernel_names = {
-        "fused": ("::pt_fused_kernel<", "BruteGeo,", "HashRng>"),
-        "fused_halton": ("::pt_fused_kernel<", "BruteGeo,", "HaltonRng>"),
+        "fused": ("::pt_fused_kernel<", "BruteGeo", "HashRng>"),
+        "fused_halton": ("::pt_fused_kernel<", "BruteGeo", "HaltonRng>"),
         "closest": "::closest_kernel(",
         "anyhit": "::anyhit_kernel(",
         "bvh_closest": "::bvh_closest_kernel(",
@@ -1148,6 +1152,13 @@ def main() -> int:
     }
     ms = {k: kernel_ms(fn, 4 if per > 1 else 20, kernel_names[k], per)
           for k, (fn, per) in calls.items()}
+    # kernel 1 at 1,048,576 paths (16 spp in one launch, as spp_per_pass=16
+    # would give): timing only
+    fill_rays = camera_rays(scene, MESH_SPP)
+    n_fill = fill_rays[3].shape[0]
+    ms_fill = kernel_ms(lambda: trace_paths_fused(scene, *fill_rays, max_depth=DEPTH), 5,
+                        kernel_names["fused"])
+    del fill_rays
     call_ms = {k: cuda_ms(fn, 4 if per > 1 else 20) / per for k, (fn, per) in calls.items()}
     # kernel 4 against the plain sweep at the main path's depth-1 launches:
     # sorted rays, the paths that ended at depth 0 parked last. The plain
@@ -1255,6 +1266,23 @@ def main() -> int:
     check(n_diff == 0, f"bvh_anyhit at its main-path launch: flags equal to the plain "
           f"sweep's ({int(plain_out['any'].sum())} occluded, {n_diff} differ)")
     err["bvh_anyhit"] = max(err["bvh_anyhit"], float(n_diff > 0))
+    # ... and to the numpy oracle of the reference layout's walk, bit for
+    # bit, on every 512th ray of the launches
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import traverse_packed_ref
+
+    ref_tables = (mesh_main.bvh.box, mesh_main.bvh.meta, mesh_main.tri_v0, mesh_main.tri_e0,
+                  mesh_main.tri_e1)
+    pick_c = torch.arange(0, o_c.shape[0], o_c.shape[0] // BOUND_SAMPLE, device=dev)
+    t_r, i_r, _ = traverse_packed_ref(*ref_tables, o_c[pick_c], d_c[pick_c])
+    check(np.array_equal(tk[pick_c].cpu().numpy(), t_r)
+          and np.array_equal(ik[pick_c].cpu().numpy(), i_r),
+          f"bvh_closest at its main-path launch: t and rows of {len(pick_c)} rays equal "
+          f"traverse_packed_ref's bit for bit")
+    pick_a = torch.arange(0, o_a.shape[0], o_a.shape[0] // BOUND_SAMPLE, device=dev)
+    occ_r, _ = traverse_packed_ref(*ref_tables, o_a[pick_a], d_a[pick_a], "any", tm_a[pick_a])
+    check(np.array_equal(ok_[pick_a].cpu().numpy(), occ_r),
+          f"bvh_anyhit at its main-path launch: flags of {len(pick_a)} rays equal "
+          f"traverse_packed_ref's")
 
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
@@ -1403,6 +1431,9 @@ def main() -> int:
           f"tests ({(htests * MT_FLOPS + hhits * SHADE_FLOPS) / n1:.0f} flop/path), Halton dims "
           f"{h0_dims} at depth 0: {hint / n1:.0f} integer operations/path; BVH mode "
           f"{flops_fbvh_h / n_pass:.0f} flop and {hint_bvh / n_pass:.0f} integer operations/path")
+    print(f"  pt_fused_bruteforce (hash) at {n_fill} paths (16 spp in one launch): "
+          f"{ms_fill:.4f} ms per launch, {1e6 * ms_fill / n_fill:.3f} ns per path, against "
+          f"{ms['fused']:.4f} ms and {1e6 * ms['fused'] / n1:.3f} ns per path at {n1} {tag}")
     print(f"  ms per launch, Halton against hash: brute force at {n1} paths "
           f"{ms['fused_halton']:.4f} vs {ms['fused']:.4f}, BVH at {n_pass} "
           f"{ms['fused_bvh_halton']:.4f} vs {ms['fused_bvh']:.4f} {tag}")

@@ -1,14 +1,16 @@
 // Per-ray traversal of the compact 8-wide BVH (ops/bvh.py pack_nodes,
-// pack_tri_rows) for the fused path-tracing kernels (megakernel.cu,
-// BvhGeo). The traversal kernels (bvh.cu) keep bvh_trace on the
-// reference's layout (bvh.cuh).
+// pack_tri_rows): the one BVH walk of the port's kernels, in the traversal
+// kernels (bvh.cu) and the fused path-tracing kernels (megakernel.cu,
+// BvhGeo).
 //
-// It computes what bvh_trace computes, with the same slab test, the same
-// near-first visit order and the same culls, so t, u, v and the row are
-// bvh_trace's bit for bit (ops/bvh.py traverse_compact_ref, its numpy
-// oracle, gives traverse_packed_ref's). What differs is the layout and
-// the stack, the two things that held bvh_trace back in the fused
-// kernels on an H100 (544 B of stack and spills a thread):
+// It computes what a per-ray stack walk of the reference's layout computes
+// (ops/bvh.py traverse_packed_ref, the (M, 128) box rows and (M, 16) meta
+// rows), with the same slab test, the same near-first visit order and the
+// same culls, so t, u, v and the row are that walk's bit for bit (ops/bvh.py
+// traverse_compact_ref, this walk's numpy oracle, gives
+// traverse_packed_ref's). What differs is the layout and the stack, the
+// two things that held that walk back on an H100 (512-544 B of stack and
+// spills a thread):
 //
 // - A node is 256 B: 48 slab floats comp-major, 8 slot words, 8 octant
 //   permcodes (the TPU lane padding of the (M, 128) box rows dropped). An
@@ -22,9 +24,9 @@
 // - The stack holds one 32-bit entry per level, (node << 8) | the mask of
 //   the node's children not yet taken, in near-first order, instead of a
 //   (slotword, tn) entry per child: 8 entries (32 B) walk a tree of depth
-//   9, the depth bvh_trace's 64 entries allow. A child taken after the
-//   limit may have shrunk is slab-tested again, which is the cull
-//   bvh_trace makes with its stored tn (tn does not depend on the limit).
+//   9, the depth a 64-entry stack of children allows. A child taken after
+//   the limit may have shrunk is slab-tested again, which is the cull a
+//   walk with stored tn makes (tn does not depend on the limit).
 // - A leaf tests its rows up to its last real one (the row count sits in
 //   the slot word's spare bits 2-5); the pad rows after it never hit.
 //   Rows are [v0,0|e0,0|e1,0], three float4 loads.

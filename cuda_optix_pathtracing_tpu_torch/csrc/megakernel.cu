@@ -26,25 +26,31 @@
 // pcg4d keyed (px, py, sample ^ seed, depth * 24 + dim), or Owen-scrambled
 // Halton for the dimensions below qmc_dims.
 //
-// What bounds the whole-path kernel on the card (brute force):
-// arithmetic. A path reads 36 bytes and writes 12, and does ~(T * 90 +
-// 800) flops per bounce (two triangle sweeps and the shading), ~22 kflop
-// for the Cornell box at depth 5: the FP32 pipes, not memory, set the
-// floor. Divergence (paths end at different depths, materials branch) and
-// register pressure (the whole bounce state lives in registers) are what
-// keep it above that floor. The Halton sampler adds integer work at depth
-// 0 only (qmc_dims = 12 < 24 dims per bounce): ~70 digit steps per path.
+// What bounds the whole-path kernel on the card (brute force): at its
+// data's own work, arithmetic. A path reads 36 bytes and writes 12, and
+// does ~(T * 90 + 800) flops per bounce (two triangle sweeps and the
+// shading), ~22 kflop for the Cornell box at depth 5. In practice latency:
+// the main path launches 65,536 paths, one wave of about 4 warps per
+// scheduler, too few to hide the dependent chains of a sweep and of the
+// shading, and a warp lasts as long as its longest path. The closest-hit
+// sweeps take about 30 % of the time, the shading most of the rest; a
+// launch of 1,048,576 paths costs only 10 % less per path (PERF.md). The
+// Halton sampler adds integer work at depth 0 only (qmc_dims = 12 < 24
+// dims per bounce): ~70 digit steps per path.
 //
 // Design: one thread per path, the whole depth loop in registers, as the
 // reference CUDA renderer's megakernel does. The triangle, material,
 // light and emissive tables are staged once per block into dynamic shared
-// memory, where every thread of a warp reads the same row (a broadcast).
-// The E/Eavg polynomial coefficients travel in the same table. A finished
-// path leaves the loop at once instead of running masked bounces, and a
-// shadow ray is traced only when its contribution is non-zero. The TPU
-// kernel's lane tiles, SMEM scalar streaming and second "fetch" sweep are
-// not carried over; the winner's barycentrics are kept during the sweep
-// instead.
+// memory from a blob built once per scene, where every thread of a warp
+// reads the same row (a broadcast). The E/Eavg polynomial coefficients
+// travel in the same table. A finished path leaves the loop at once
+// instead of running masked bounces, and a shadow ray is traced only when
+// its contribution is non-zero. The sweeps (BruteGeo) read 48 B rows as
+// three 16-byte loads and reject a triangle before the division where the
+// division could not accept it (a warp whose lanes all reject skips it).
+// The TPU kernel's lane tiles, SMEM scalar streaming and second "fetch"
+// sweep are not carried over; the winner's barycentrics are kept during
+// the sweep instead.
 //
 // BVH mode: the closest hit and the shadow ray walk the compact 8-wide BVH
 // per thread (cbvh_trace in bvh_compact.cuh: 256 B nodes, a 32 B stack of
@@ -98,7 +104,11 @@
 
 namespace {
 
+// The brute-force kernel: 128 threads a block and at most 128 registers a
+// thread (four blocks, 16 warps, per SM), so the main path's launch of
+// 65,536 paths (512 blocks) fits the card in one wave.
 constexpr int kBlock = 128;
+constexpr int kMinBlocks = 4;
 
 // ---------------------------------------------------------------------------
 // RNG (ops/rng.py)
@@ -739,16 +749,74 @@ __device__ void sample_area(const float* em, int k_em, float3 pos, float u1, flo
 // geometry policies: the closest hit and the shadow query
 // ---------------------------------------------------------------------------
 
-// Brute force: every triangle, staged in shared memory as rows
-// [v0 | e0 | e1] (T, 9) followed by the material ids (T) as floats.
+// The brute-force sweep's cull: a triangle is rejected before the
+// division only where mt_test would reject it. With a = |det| >= 1e-7 (a
+// parallel triangle is rejected as mt_test rejects it) and the numerators
+// U, V, T of u, v, t signed by det, mt_test's u = fl(fl(1/det) * U/sign)
+// is (U / a)(1 + e), |e| < 3 * 2^-24, and the products a * c below round
+// once more (the arguments are normal floats: a * c >= 1e-14):
+// - U < -a * CULL_LO gives u < -2e-7 (1 - 2^-22) < -MT_TOLERANCE; V alike;
+// - U + V > a * CULL_HI (the sum rounded once; u, v >= -2e-7 there) gives
+//   fl(u + v) > 1 + 3.7e-6 > 1 + MT_TOLERANCE;
+// - T <= a * CULL_TMIN gives t <= 0.99e-4 (1 + 2^-22) < T_MIN, which takes
+//   in T of the opposite sign to det (t < 0);
+// - T >= a * (t_cap * CULL_TCAP) gives t > t_cap, which mt_test rejects
+//   too (an overflow to inf culls nothing; t_cap <= T_MIN rejects all).
+// A triangle that passes runs the rest of mt_test on the same rounded
+// values (the division and the hit decision), so t, u, v and the hit are
+// mt_test's bit for bit. ops/intersect.py mt_cull is its plain version.
+#define CULL_LO 2e-7f
+#define CULL_HI 1.000004f
+#define CULL_TMIN 0.99e-4f
+#define CULL_TCAP 1.000004f
+
+// mt_test against row r = [v0, . | e0, . | e1, .] with the cull before the
+// division; cap = t_cap * CULL_TCAP.
+__device__ __forceinline__ bool sweep_test(float3 o, float3 d, const float4* r, float t_cap,
+                                           float cap, float& t, float& u, float& v) {
+  const float4 p0 = r[0], e0 = r[1], e1 = r[2];
+  const float px = mul_sub_rn(d.y, e1.z, d.z, e1.y);
+  const float py = mul_sub_rn(d.z, e1.x, d.x, e1.z);
+  const float pz = mul_sub_rn(d.x, e1.y, d.y, e1.x);
+  const float det = dot3_rn(px, e0.x, py, e0.y, pz, e0.z);
+  const float tx = o.x - p0.x, ty = o.y - p0.y, tz = o.z - p0.z;
+  const float qx = mul_sub_rn(ty, e0.z, tz, e0.y);
+  const float qy = mul_sub_rn(tz, e0.x, tx, e0.z);
+  const float qz = mul_sub_rn(tx, e0.y, ty, e0.x);
+  const float un = dot3_rn(px, tx, py, ty, pz, tz);
+  const float vn = dot3_rn(qx, d.x, qy, d.y, qz, d.z);
+  const float tn = dot3_rn(qx, e1.x, qy, e1.y, qz, e1.z);
+  const float a = fabsf(det);
+  const bool neg = det < 0.0f;
+  const float us = neg ? -un : un, vs = neg ? -vn : vn, ts = neg ? -tn : tn;
+  const float lo = -__fmul_rn(a, CULL_LO);
+  // one predicate, one branch: a warp whose lanes all cull skips the rest
+  if ((a < MT_TOLERANCE) | (us < lo) | (vs < lo) |
+      (__fadd_rn(us, vs) > __fmul_rn(a, CULL_HI)) | (ts <= __fmul_rn(a, CULL_TMIN)) |
+      (ts >= __fmul_rn(a, cap)))
+    return false;
+  const float inv_det = 1.0f / det;
+  u = __fmul_rn(inv_det, un);
+  v = __fmul_rn(inv_det, vn);
+  t = __fmul_rn(inv_det, tn);
+  return (u >= -MT_TOLERANCE) & (v >= -MT_TOLERANCE) &
+         (__fadd_rn(u, v) <= 1.0f + MT_TOLERANCE) & (t > T_MIN) & (t < t_cap);
+}
+
+// Brute force: every triangle, staged in shared memory as rows of three
+// float4s [v0, material id (int32 bits) | e0, 0 | e1, 0] (48 B: three
+// 16-byte loads a test), built once per scene (ops/shade_tables.py
+// pack_brute_tables), tested with sweep_test (the cull before the
+// division). The winner is the first index of the least t (strict t < tb,
+// in index order).
 struct BruteGeo {
   int n_tris;
-  const float* tri;
-  const float* mid;
-  __host__ __device__ int smem_floats() const { return 10 * n_tris; }
-  __device__ void bind(const float* smem) {
-    tri = smem;
-    mid = smem + 9 * n_tris;
+  const float4* rows;
+  __host__ __device__ int smem_floats() const { return 12 * n_tris; }
+  __device__ void bind(const float* smem) { rows = reinterpret_cast<const float4*>(smem); }
+  __device__ bool test(float3 o, float3 d, int i, float t_cap, float cap, float& t, float& u,
+                       float& v) const {
+    return sweep_test(o, d, rows + 3 * i, t_cap, cap, t, u, v);
   }
   // sweep all triangles, keep the winner's (u, v)
   __device__ bool closest(float3 o, float3 d, float& tb, float& ub, float& vb,
@@ -756,10 +824,12 @@ struct BruteGeo {
     tb = BIG_T;
     ub = vb = 0.0f;
     ib = 0;
+    float cap = BIG_T * CULL_TCAP;
     for (int i = 0; i < n_tris; ++i) {
       float t, u, v;
-      if (mt_test(o, d, tri + 9 * i, tb, t, u, v)) {
+      if (test(o, d, i, tb, cap, t, u, v)) {
         tb = t;
+        cap = t * CULL_TCAP;
         ib = i;
         ub = u;
         vb = v;
@@ -768,20 +838,20 @@ struct BruteGeo {
     return tb < BIG_T;
   }
   __device__ bool occluded(float3 o, float3 d, float t_max) const {
-    bool occ = false;
-    for (int i = 0; i < n_tris && !occ; ++i) {
+    const float cap = t_max * CULL_TCAP;
+    for (int i = 0; i < n_tris; ++i) {
       float t, u, v;
-      occ = mt_test(o, d, tri + 9 * i, t_max, t, u, v);
+      if (test(o, d, i, t_max, cap, t, u, v)) return true;
     }
-    return occ;
+    return false;
   }
   __device__ void triangle(int i, float3& p0, float3& e0, float3& e1) const {
-    const float* r = tri + 9 * i;
-    p0 = f3(r[0], r[1], r[2]);
-    e0 = f3(r[3], r[4], r[5]);
-    e1 = f3(r[6], r[7], r[8]);
+    const float4 a = rows[3 * i], b = rows[3 * i + 1], c = rows[3 * i + 2];
+    p0 = f3(a.x, a.y, a.z);
+    e0 = f3(b.x, b.y, b.z);
+    e1 = f3(c.x, c.y, c.z);
   }
-  __device__ int material(int i) const { return (int)mid[i]; }
+  __device__ int material(int i) const { return __float_as_int(rows[3 * i].w); }
 };
 
 // BVH: per-thread traversal of the compact tables (bvh_compact.cuh).
@@ -947,15 +1017,16 @@ __device__ __forceinline__ bool bounce(const Geo& g, const Smp& rng, const Shade
 // The whole path loop per thread, brute force (TPU kernel: _pt_kernel,
 // depth0=None).
 template <class Geo, class Smp>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
                     const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                     const uint32_t* __restrict__ sample, const float* __restrict__ tables,
                     int n, int n_mats, int n_lights, int n_em, int max_depth,
                     int rr_start_depth, uint32_t seed, int qmc_dims,
                     float* __restrict__ out) {
-  // shared layout: geometry rows | shading tables
-  extern __shared__ float smem[];
+  // shared layout: geometry rows (16-byte aligned) | shading tables
+  extern __shared__ float4 smem_rows[];
+  float* smem = reinterpret_cast<float*>(smem_rows);
   const int n_geo = geo.smem_floats();
   block_copy(smem, tables, n_geo + shade_floats(n_mats, n_lights, n_em));
   __syncthreads();
@@ -1149,23 +1220,6 @@ int launch(const Geo& geo, const float* o, const float* d,
   return (int)cudaGetLastError();
 }
 
-template <class Geo>
-int launch_sampler(int sampler, const Geo& geo, const float* o, const float* d,
-                   const uint32_t* px, const uint32_t* py, const uint32_t* sample,
-                   const float* tables, int n, int n_mats, int n_lights, int n_em,
-                   int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims,
-                   float* out, void* stream) {
-  if (sampler == 0)
-    return launch<Geo, HashRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
-                                n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
-                                stream);
-  if (sampler == 1)
-    return launch<Geo, HaltonRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
-                                  n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
-                                  stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 // The grid of a persistent BVH kernel over n items: the blocks that fit
 // on the card at once at smem bytes each, and no more than n needs.
 template <class K>
@@ -1219,17 +1273,25 @@ int launch_bounce(const BvhGeo& geo, float* st, const int64_t* perm,
 // dimensions); seed is the sampler's seed.
 //
 // The whole-path kernel: o, d (n,3); px, py, sample (n,) u32; out (n,3).
-// Brute force: tables = tri (T,9) [v0|e0|e1] | material id (T) | shading
-// tables, as packed by models/megakernel_cuda.py (pack_tables).
+// Brute force: tables = triangle rows (T,12) [v0, material id | e0, 0 |
+// e1, 0] | shading tables, as packed once per scene by ops/shade_tables.py
+// (pack_brute_tables), 16-byte aligned.
 extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_t* px,
                                    const uint32_t* py, const uint32_t* sample,
                                    const float* tables, int n, int n_tris, int n_mats,
                                    int n_lights, int n_em, int max_depth,
                                    int rr_start_depth, int sampler, uint32_t seed,
                                    int qmc_dims, float* out, void* stream) {
-  const BruteGeo geo{n_tris, nullptr, nullptr};
-  return launch_sampler(sampler, geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
-                        n_em, max_depth, rr_start_depth, seed, qmc_dims, out, stream);
+  const BruteGeo geo{n_tris, nullptr};
+  if (sampler == 0)
+    return launch<BruteGeo, HashRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
+                                     n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
+                                     stream);
+  if (sampler == 1)
+    return launch<BruteGeo, HaltonRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
+                                       n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
+                                       stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // BVH: shade = the shading tables (pack_shade_tables); nodes (M, 64)

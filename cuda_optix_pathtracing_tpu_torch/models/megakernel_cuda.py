@@ -5,8 +5,9 @@ counterpart of the reference ``models/megakernel_pallas.py``.
 whole depth loop in registers, shading tables in shared memory) or
 raises; for CPU tensors it runs the kernel's plain version,
 ``models/megakernel.trace_paths`` with the plain intersection sweep. Two
-modes: a brute-force scene's triangles go to shared memory with the
-shading tables, one thread per path (``pt_fused_bruteforce``); a BVH
+modes: a brute-force scene's blob (``scene.brute_tables``, its 48 B
+triangle rows and the shading tables, built once per scene) goes to shared
+memory, one thread per path (``pt_fused_bruteforce``); a BVH
 scene's compact node table (``scene.bvh.nodes``) and triangle rows
 (``scene.tri_rows``) are read from global memory through the read-only
 path, and persistent blocks regenerate paths, each lane taking the next
@@ -41,7 +42,7 @@ from ..ops.bvh_cuda import check_bvh_scene
 from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR
 from ..ops.lights import AREA, PORTED_LIGHT_TYPES
 from ..ops.raysort import ray_sort_key32
-from ..ops.shade_tables import EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
+from ..ops.shade_tables import BRUTE_ROW_WORDS, EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
 
 MAX_SMEM_BYTES = 227 * 1024  # one block's dynamic shared memory on Hopper
@@ -69,8 +70,10 @@ def _lib():
 
 def table_bytes(scene: Scene) -> int:
     """Shared memory the kernel needs for this scene's tables: the
-    shading tables, plus the triangle rows and material ids of a
-    brute-force scene (a BVH scene's stay in global memory)."""
+    shading tables, plus a brute-force scene's triangle rows (48 B each,
+    the material id in a spare word; a BVH scene's stay in global
+    memory): the size of ``scene.brute_tables`` or of
+    ``scene.shade_tables``."""
     k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
     floats = (
         MAT_ROWS * scene.materials.mtype.shape[0]
@@ -80,7 +83,7 @@ def table_bytes(scene: Scene) -> int:
         + EPOLY_N
     )
     if scene.bvh is None:
-        floats += 10 * scene.num_triangles
+        floats += BRUTE_ROW_WORDS * scene.num_triangles
     return 4 * floats
 
 
@@ -119,21 +122,17 @@ def _shade(scene: Scene) -> torch.Tensor:
 
 def _bvh_tables(scene: Scene):
     """The BVH kernels' table arguments: the compact nodes, the triangle
-    rows and the material ids."""
-    nodes, rows = scene.bvh.nodes, scene.tri_rows
-    if not (nodes.is_contiguous() and rows.is_contiguous()):
-        raise ValueError("the compact BVH tables must be contiguous")
-    if nodes.shape[0] >= 1 << 24:  # a stack entry holds the node in 24 bits
-        raise ValueError(f"{nodes.shape[0]} BVH nodes, more than the fused kernels' 2^24")
-    return nodes.data_ptr(), rows.data_ptr(), scene.tri_mat.data_ptr()
+    rows and the material ids (``check_bvh_scene`` has checked them)."""
+    return scene.bvh.nodes.data_ptr(), scene.tri_rows.data_ptr(), scene.tri_mat.data_ptr()
 
 
-def pack_tables(scene: Scene) -> torch.Tensor:
-    """The brute-force kernel's blob: tri (T,9) [v0|e0|e1] | material id
-    (T) | the scene's shading tables."""
-    tri = torch.cat([scene.tri_v0, scene.tri_e0, scene.tri_e1], dim=1)
-    parts = [tri.reshape(-1), scene.tri_mat.to(torch.float32), _shade(scene)]
-    return torch.cat(parts).contiguous()
+def _brute(scene: Scene) -> torch.Tensor:
+    if scene.brute_tables is None:
+        raise ValueError(
+            "the scene has no brute_tables; build it with scene_from_host or "
+            "scene_from_arrays (ops/shade_tables.pack_brute_tables)"
+        )
+    return scene.brute_tables
 
 
 def _u32_as_i32(x, n, device):
@@ -206,10 +205,9 @@ def trace_paths_fused(
             counter.data_ptr(), out.data_ptr(), stream,
         )
     else:
-        tables = pack_tables(scene)
         rc = _lib().pt_fused_bruteforce(
             o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            s32.data_ptr(), tables.data_ptr(),
+            s32.data_ptr(), _brute(scene).data_ptr(),
             n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
             rr_start_depth, *smp, out.data_ptr(), stream,
         )

@@ -19,12 +19,14 @@ reference's exact layout:
 - ``perm`` (Tp,) i32, host: packed row → original triangle (-1 = pad).
 
 ``traverse_packed_ref`` is a per-ray stack traversal of those tables in
-numpy: the CPU oracle of the CUDA kernel (``csrc/bvh.cuh``), step for
-step, with the counts of node pops and triangle tests that the bound of
-the kernel's work needs.
+numpy, as the reference's CUDA renderer walks them: the CPU oracle of the
+kernels' traversal, with the counts of node pops and triangle tests that
+the bound of the kernels' work needs.
 
-The fused path-tracing kernels (``csrc/megakernel.cu``) read a compact
-copy of the same tree, built once per scene (``scene/types.py``):
+The CUDA kernels that walk the tree (the traversal kernels of
+``csrc/bvh.cu`` and the fused path-tracing kernels of
+``csrc/megakernel.cu``) read a compact copy of it, built once per scene
+(``scene/types.py``):
 
 - ``pack_nodes`` → (M, 64) 32-bit words per node, 256 B: the 48 slab
   floats of ``box`` (the TPU's 80 lanes of padding dropped), the 8 slot
@@ -34,8 +36,9 @@ copy of the same tree, built once per scene (``scene/types.py``):
   loads per triangle.
 
 ``traverse_compact_ref`` walks those tables one ray at a time as the
-kernels' traversal does (a stack of (node, children left) entries, one
-per level), and gives ``traverse_packed_ref``'s t and rows.
+kernels' traversal (``csrc/bvh_compact.cuh``) does (a stack of (node,
+children left) entries, one per level), and gives ``traverse_packed_ref``'s
+t and rows.
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ from .intersect import BIG_T, MT_TOLERANCE, T_MIN
 LEAF_SIZE = 16  # triangles per leaf, two 8-row blocks
 N_BINS = 16
 BRANCHING = 8
-STACK_SIZE = 64  # entries of the kernel's per-ray stack (csrc/bvh.cuh)
-COMPACT_STACK = 8  # entries of the fused kernels' stack (csrc/bvh_compact.cuh)
+STACK_SIZE = 64  # entries of traverse_packed_ref's stack of children
+COMPACT_STACK = 8  # entries of the kernels' stack (csrc/bvh_compact.cuh)
 NODE_WORDS = 64  # 32-bit words of a compact node: 48 slabs | 8 slots | 8 permcodes
 ROW_WORDS = 12  # floats of a compact triangle row
 
@@ -61,12 +64,12 @@ CODE_LEAF = 2
 
 
 def stack_fits(depth: int) -> bool:
-    """Can both traversals walk a tree of ``depth`` levels of internal
-    nodes? Kernel 4's ``bvh_trace`` pushes up to 7 children per node it
-    pops (7·depth + 1 entries); the fused kernels' compact walk keeps one
-    (node, children left) entry per level above the deepest (depth - 1).
-    Both allow depth 9 at most."""
-    return 7 * depth + 1 <= STACK_SIZE and depth - 1 <= COMPACT_STACK
+    """Can the kernels walk a tree of ``depth`` levels of internal nodes?
+    Their compact walk keeps one (node, children left) entry per level
+    above the deepest (depth - 1 entries): depth 9 at most, the depth that
+    ``traverse_packed_ref``'s stack of children (7·depth + 1 entries) allows
+    too."""
+    return depth - 1 <= COMPACT_STACK
 
 
 class BVHArrays(NamedTuple):
@@ -96,7 +99,7 @@ def build_bvh(v0, e0, e1) -> BVHArrays:
 class PackedBVH(NamedTuple):
     """Node tables on the scene's device, in the reference's layout (see
     the module docstring), plus the host permutation, the tree's depth and
-    the fused kernels' compact node table. ``packed_bvh`` makes one."""
+    the kernels' compact node table. ``packed_bvh`` makes one."""
 
     box: torch.Tensor  # (M, 128) f32
     meta: torch.Tensor  # (M*16,) i32
@@ -277,8 +280,9 @@ def _mt(o, d, v0, e0, e1):
 
 def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest", t_max=None,
                         perm=None):
-    """Per-ray stack traversal of the packed tables, as the CUDA kernel
-    does it (all rays step together, each with its own stack):
+    """Per-ray stack traversal of the packed tables, one stack of
+    children per ray (all rays step together), the walk that the kernels'
+    compact traversal reproduces bit for bit:
 
     - ``inv = 1/where(|d| < 1e-12, 1e-12, d)``; octant from the signs of d;
     - pop an entry (slotword, tn); skip it when tn > limit (limit = t_best
@@ -296,7 +300,7 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
     tests) and ``tests`` (ray-triangle tests). Given the host ``perm``,
     ``tests`` counts real rows only (``perm`` ≥ 0): a leaf's pad rows follow
     its real ones and never hit, so these are the tests a traversal needs,
-    where ``bvh_trace`` makes all LEAF_SIZE."""
+    where a walk of these tables alone makes all LEAF_SIZE."""
     if mode not in ("closest", "any"):
         raise ValueError(f"unknown mode {mode!r}")
     anyhit = mode == "any"
@@ -389,7 +393,7 @@ def traverse_packed_ref(box, meta, tri_v0, tri_e0, tri_e1, o, d, mode="closest",
 
 def traverse_compact_ref(nodes, rows, o, d, mode="closest", t_max=None):
     """Per-ray walk of the compact tables (``pack_nodes``,
-    ``pack_tri_rows``), one ray at a time, as the fused kernels' traversal
+    ``pack_tri_rows``), one ray at a time, as the kernels' traversal
     (``csrc/bvh_compact.cuh``) does it:
 
     - a node's expansion slab-tests its 8 children at once (the test of

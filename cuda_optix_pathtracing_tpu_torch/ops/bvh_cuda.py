@@ -2,8 +2,9 @@
 counterpart of the reference ``ops/bvh_pallas.py``.
 
 ``bvh_closest_raw`` and ``bvh_any_raw`` take the rays and a BVH scene:
-its node tables (``scene.bvh.box``, ``scene.bvh.meta``) and its triangle
-arrays, already in packed-BVH order. Nothing is packed per launch. For
+the kernels walk its compact tables (``scene.bvh.nodes``, 256 B nodes, and
+``scene.tri_rows``, ``(Tp, 12)`` rows in packed-BVH order), built once per
+scene, as the fused kernels do. Nothing is packed per launch. For
 CUDA tensors each wrapper launches its kernel or raises; for CPU tensors
 it runs the plain version, the brute-force sweep over the same packed,
 padded arrays (``ops/intersect.py``), which is what the reference computes
@@ -20,7 +21,7 @@ import functools
 import torch
 
 from . import _cuda_build
-from .bvh import COMPACT_STACK, STACK_SIZE, stack_fits
+from .bvh import COMPACT_STACK, stack_fits
 from .intersect import intersect_any, intersect_closest_raw
 
 _P = ctypes.c_void_p
@@ -30,26 +31,30 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = _cuda_build.load("bvh")
-    lib.bvh_closest.argtypes = [_P] * 7 + [_I] + [_P] * 3
+    lib.bvh_closest.argtypes = [_P] * 4 + [_I] + [_P] * 3
     lib.bvh_closest.restype = _I
-    lib.bvh_anyhit.argtypes = [_P] * 8 + [_I] + [_P] * 2
+    lib.bvh_anyhit.argtypes = [_P] * 5 + [_I] + [_P] * 2
     lib.bvh_anyhit.restype = _I
     return lib
 
 
 def check_bvh_scene(scene, o, d) -> None:
     """Raise unless ``scene`` has a BVH the kernels can walk (its depth
-    fits their stacks, its tables are contiguous) and the rays are (N, 3)
-    float32 on its device."""
+    fits their stack, its compact tables are contiguous and its node
+    indices fit a stack entry's 24 bits) and the rays are (N, 3) float32 on
+    its device. Both kernel families walk the same tables
+    (``csrc/bvh_compact.cuh``): the traversal kernels here and the fused
+    BVH kernels (``models/megakernel_cuda.py``)."""
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH")
     if not stack_fits(bvh.depth):
         raise ValueError(
-            f"BVH depth {bvh.depth} needs {7 * bvh.depth + 1} stack entries in the "
-            f"traversal kernel (it has {STACK_SIZE}) and {bvh.depth - 1} in the fused "
-            f"kernels (they have {COMPACT_STACK})"
+            f"BVH depth {bvh.depth} needs {bvh.depth - 1} entries of the kernels' compact "
+            f"stack (one per level above the deepest; it has {COMPACT_STACK})"
         )
+    if bvh.nodes.shape[0] >= 1 << 24:  # a stack entry holds the node in 24 bits
+        raise ValueError(f"{bvh.nodes.shape[0]} BVH nodes, more than the kernels' 2^24")
     for name, x in (("o", o), ("d", d)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
             raise ValueError(f"{name} must be (N, 3) float32, got {tuple(x.shape)} {x.dtype}")
@@ -57,15 +62,12 @@ def check_bvh_scene(scene, o, d) -> None:
             raise ValueError(f"{name} is on {x.device}, the scene on {scene.device}")
     if o.shape[0] != d.shape[0]:
         raise ValueError("o and d differ in length")
-    tables = (bvh.box, bvh.meta, scene.tri_v0, scene.tri_e0, scene.tri_e1, scene.tri_mat)
-    if not all(x.is_contiguous() for x in tables):
-        raise ValueError("the scene's BVH and triangle tables must be contiguous")
+    if not all(x.is_contiguous() for x in (bvh.nodes, scene.tri_rows, scene.tri_mat)):
+        raise ValueError("the scene's compact BVH tables must be contiguous")
 
 
 def _tables(scene):
-    b = scene.bvh
-    return (b.box.data_ptr(), b.meta.data_ptr(), scene.tri_v0.data_ptr(),
-            scene.tri_e0.data_ptr(), scene.tri_e1.data_ptr())
+    return scene.bvh.nodes.data_ptr(), scene.tri_rows.data_ptr()
 
 
 def bvh_closest_raw(o, d, scene):

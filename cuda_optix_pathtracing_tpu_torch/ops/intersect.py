@@ -10,6 +10,11 @@ d = 0 never hit (det = 0 is "parallel").
 
 Triangles are SoA ``v0, e0, e1`` (T, 3) with ``e0 = p1 - p0``,
 ``e1 = p2 - p0``; the geometric normal is ``cross(e1, e0)`` normalized.
+
+``mt_cull`` is the plain version of the cull that the brute-force fused
+kernel's sweeps make before the division (``csrc/megakernel.cu``
+``sweep_test``); only the tests use it, to hold it to the sweeps here: it
+never rejects a pair they accept.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ from .vecmath import cross, dot, error_from_triangle_intersection, normalize
 MT_TOLERANCE = 1e-7
 T_MIN = 1e-4
 BIG_T = 3.0e38
+
+# the fused kernel's cull bounds (csrc/megakernel.cu CULL_*), float32
+CULL_LO, CULL_HI, CULL_TMIN, CULL_TCAP = 2e-7, 1.000004, 0.99e-4, 1.000004
 
 
 class ClosestHit(NamedTuple):
@@ -39,9 +47,9 @@ class ClosestHit(NamedTuple):
     front: torch.Tensor  # (N,) bool: hit the side cross(e0,e1) points to
 
 
-def _mt_candidates(o, d, v0, e0, e1):
-    """(N, Tc) Möller–Trumbore t for every (ray, triangle) pair; invalid
-    pairs get BIG_T."""
+def _mt_numerators(o, d, v0, e0, e1):
+    """(N, Tc) Möller–Trumbore det and the numerators of u, v and t for
+    every (ray, triangle) pair, each operation rounded to float32."""
     ox, oy, oz = (o[:, None, i] for i in range(3))
     dx, dy, dz = (d[:, None, i] for i in range(3))
     v0x, v0y, v0z = (v0[None, :, i] for i in range(3))
@@ -51,17 +59,27 @@ def _mt_candidates(o, d, v0, e0, e1):
     py = dz * e1x - dx * e1z
     pz = dx * e1y - dy * e1x
     det = px * e0x + py * e0y + pz * e0z
-    parallel = torch.abs(det) < MT_TOLERANCE
-    inv_det = 1.0 / torch.where(parallel, 1.0, det)
     tx = ox - v0x
     ty = oy - v0y
     tz = oz - v0z
     qx = ty * e0z - tz * e0y
     qy = tz * e0x - tx * e0z
     qz = tx * e0y - ty * e0x
-    u = inv_det * (px * tx + py * ty + pz * tz)
-    v = inv_det * (qx * dx + qy * dy + qz * dz)
-    t = inv_det * (qx * e1x + qy * e1y + qz * e1z)
+    un = px * tx + py * ty + pz * tz
+    vn = qx * dx + qy * dy + qz * dz
+    tn = qx * e1x + qy * e1y + qz * e1z
+    return det, un, vn, tn
+
+
+def _mt_candidates(o, d, v0, e0, e1):
+    """(N, Tc) Möller–Trumbore t for every (ray, triangle) pair; invalid
+    pairs get BIG_T."""
+    det, un, vn, tn = _mt_numerators(o, d, v0, e0, e1)
+    parallel = torch.abs(det) < MT_TOLERANCE
+    inv_det = 1.0 / torch.where(parallel, 1.0, det)
+    u = inv_det * un
+    v = inv_det * vn
+    t = inv_det * tn
     valid = (
         (~parallel)
         & (u >= -MT_TOLERANCE)
@@ -70,6 +88,28 @@ def _mt_candidates(o, d, v0, e0, e1):
         & (t > T_MIN)
     )
     return torch.where(valid, t, BIG_T)
+
+
+def mt_cull(o, d, v0, e0, e1, t_cap):
+    """(N, T) bool: the pairs that the brute-force fused kernel's sweep
+    rejects before the division, where ``t_cap`` (N,) is the sweep's limit
+    (the best t so far, or the shadow ray's t_max), computed as the kernel
+    computes it. With a = |det| and the numerators signed by det, a pair is
+    rejected when parallel, when u's or v's numerator is below −a·CULL_LO,
+    their sum above a·CULL_HI, t's numerator at most a·CULL_TMIN, or at
+    least a·(t_cap·CULL_TCAP): each implies that ``_mt_candidates``'s t is
+    invalid or not below t_cap (``csrc/megakernel.cu`` says why)."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    det, un, vn, tn = _mt_numerators(o, d, v0, e0, e1)
+    a = torch.abs(det)
+    neg = det < 0.0
+    us, vs, ts = (torch.where(neg, -x, x) for x in (un, vn, tn))
+    lo = -(a * f32(CULL_LO))
+    cap = torch.as_tensor(t_cap, dtype=torch.float32, device=o.device) * f32(CULL_TCAP)
+    return (
+        (a < MT_TOLERANCE) | (us < lo) | (vs < lo) | (us + vs > a * f32(CULL_HI))
+        | (ts <= a * f32(CULL_TMIN)) | (ts >= a * cap[:, None])
+    )
 
 
 def intersect_closest_raw(o, d, v0, e0, e1, chunk: int = 32):

@@ -1,9 +1,12 @@
-"""The fused kernel's shading tables (``csrc/megakernel.cu``) packed into
-one float32 blob, in the kernel's shared-memory layout.
+"""The fused kernels' tables (``csrc/megakernel.cu``) packed into float32
+blobs, in the kernels' shared-memory layout: the shading tables of every
+scene, and a brute-force scene's whole blob, its triangle rows followed
+by the shading tables.
 
-The scene builders call ``pack_shade_tables`` once per scene and keep the
-blob on the ``Scene``, so no kernel launch packs it; the kernel's wrapper
-(``models/megakernel_cuda.py``) only reads it.
+The scene builders call ``pack_shade_tables`` and ``pack_brute_tables``
+once per scene and keep the blobs on the ``Scene``, so no kernel launch
+packs them; the kernels' wrapper (``models/megakernel_cuda.py``) only
+reads them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ MAT_ROWS = 24  # mtype, albedo3, on_sigma, alphax, alphay, phi0, eta,
 LIGHT_ROWS = 13  # ltype, color3, pos3, direction3, cos_theta0, cos_theta_e, radius
 EM_ROWS = 15  # v0 3, e0 3, e1 3, rad 3, cdf_lo, cdf_hi, total area
 EPOLY_N = 7 * 7 + 7  # E(cos, alpha^2) and Eavg(alpha^2) coefficients, degree 6
+BRUTE_ROW_WORDS = 12  # [v0, material id | e0, 0 | e1, 0]: three float4s
 
 
 @functools.cache
@@ -73,3 +77,14 @@ def pack_shade_tables(
     epoly = torch.from_numpy(_epoly()).to(mat_tab.device)
     parts = [mat_tab, light_tab, em_tab, env_color(env), epoly]
     return torch.cat([p.reshape(-1).to(torch.float32) for p in parts]).contiguous()
+
+
+def pack_brute_tables(v0, e0, e1, tri_mat, shade: torch.Tensor) -> torch.Tensor:
+    """(T·12 + S,) float32: the brute-force fused kernel's shared-memory
+    blob, triangle rows ``[v0, material id | e0, 0 | e1, 0]`` (the id as
+    int32 bits; three 16-byte loads a row) then the shading tables
+    ``shade`` (``pack_shade_tables``)."""
+    rows = torch.zeros((v0.shape[0], BRUTE_ROW_WORDS), dtype=torch.float32, device=v0.device)
+    rows[:, 0:3], rows[:, 4:7], rows[:, 8:11] = v0, e0, e1
+    rows[:, 3] = tri_mat.to(torch.int32).view(torch.float32)
+    return torch.cat([rows.reshape(-1), shade]).contiguous()

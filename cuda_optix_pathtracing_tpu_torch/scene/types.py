@@ -10,10 +10,12 @@ textures, shading normals, an HDR environment or instancing (slice 5)
 raise ``NotImplementedError``.
 
 Every table a kernel or a query reads is built here, once per scene: the
-BVH node tables (the reference's layout for the traversal kernels, and the
-fused kernels' compact copy with its triangle rows), ``bounds`` (the
-packed rows' box, which the ray sort of BVH queries quantises origins in)
-and ``shade_tables``, the fused kernel's packed shading tables.
+BVH node tables (the reference's layout, and the compact copy with its
+triangle rows that the BVH kernels walk), ``bounds`` (the packed rows'
+box, which the ray sort of BVH queries quantises origins in),
+``shade_tables``, the fused kernels' packed shading tables, and a
+brute-force scene's ``brute_tables``, its fused kernel's whole
+shared-memory blob.
 
 ``scene_from_arrays`` carries a reference ``Scene`` over: it takes the
 reference's fields flattened to numpy by dotted name (``"materials.albedo"``,
@@ -52,7 +54,7 @@ from ..ops.lights import (
     make_light_table,
 )
 from ..ops.raysort import scene_bounds
-from ..ops.shade_tables import pack_shade_tables
+from ..ops.shade_tables import pack_brute_tables, pack_shade_tables
 
 # scenes at or above this many triangles get a BVH in the reference
 BVH_THRESHOLD = 512
@@ -81,7 +83,10 @@ class Scene(NamedTuple):
     bounds: Optional[torch.Tensor] = None  # (2, 3) f32 [lo, hi] box of the
     # triangle rows (pads included) of a BVH scene: the ray sort's grid
     tri_rows: Optional[torch.Tensor] = None  # (Tp, 12) f32 [v0,0|e0,0|e1,0]
-    # rows of a BVH scene, which the fused kernels read (ops/bvh.pack_tri_rows)
+    # rows of a BVH scene, which the BVH kernels read (ops/bvh.pack_tri_rows)
+    brute_tables: Optional[torch.Tensor] = None  # (T·12 + S,) f32 blob of a
+    # brute-force scene that its fused kernel stages in shared memory: rows
+    # [v0, mat | e0, 0 | e1, 0], then shade_tables (pack_brute_tables)
 
     @property
     def num_triangles(self) -> int:
@@ -224,16 +229,16 @@ def scene_from_host(
 
 def with_kernel_tables(scene: Scene) -> Scene:
     """``scene`` with the tables its kernels and queries read, built once
-    per scene so that no launch builds them: the fused kernel's shading
-    tables, and a BVH scene's ``bounds``. (A BVH scene's compact nodes and
-    triangle rows are built with its ``bvh`` and ``tri_*`` arrays.)"""
-    bounds = None
+    per scene so that no launch builds them: the fused kernels' shading
+    tables, a BVH scene's ``bounds``, and a brute-force scene's blob for its
+    fused kernel. (A BVH scene's compact nodes and triangle rows are built
+    with its ``bvh`` and ``tri_*`` arrays.)"""
+    shade = pack_shade_tables(scene.materials, scene.lights, scene.env, scene.emissive)
     if scene.bvh is not None:
         bounds = torch.stack(scene_bounds(scene.tri_v0, scene.tri_e0, scene.tri_e1))
-    return scene._replace(
-        shade_tables=pack_shade_tables(scene.materials, scene.lights, scene.env, scene.emissive),
-        bounds=bounds,
-    )
+        return scene._replace(shade_tables=shade, bounds=bounds)
+    brute = pack_brute_tables(scene.tri_v0, scene.tri_e0, scene.tri_e1, scene.tri_mat, shade)
+    return scene._replace(shade_tables=shade, brute_tables=brute)
 
 
 # reference Scene fields outside this slice, and the slice that ports them

@@ -148,16 +148,47 @@ def test_kernel_refuses_trees_deeper_than_its_stack():
     scene = cornell_box_mesh(8, 8, subdiv=8, use_bvh=True, device="cpu")
     o = torch.zeros((4, 3))
     check_bvh_scene(scene, o, o)
-    deep = scene._replace(bvh=scene.bvh._replace(depth=(TB.STACK_SIZE - 1) // 7 + 1))
-    with pytest.raises(ValueError, match="stack entries"):
+    deep = scene._replace(bvh=scene.bvh._replace(depth=TB.COMPACT_STACK + 2))
+    with pytest.raises(ValueError, match="entries of the kernels' compact stack"):
         check_bvh_scene(deep, o, o)
 
 
 def test_both_stacks_allow_depth_nine():
-    """Kernel 4's stack (7 entries a level) and the fused kernels' compact
-    stack (one entry a level) refuse the same trees: deeper than 9."""
+    """The kernels' compact stack (one entry a level) refuses the trees
+    that the oracle's stack of children (7 entries a level) refuses:
+    deeper than 9."""
     assert TB.stack_fits(9) and not TB.stack_fits(10)
     assert 7 * 10 + 1 > TB.STACK_SIZE and 10 - 1 > TB.COMPACT_STACK
+
+
+@pytest.mark.parametrize("table", ["nodes", "tri_rows", "tri_mat"])
+def test_kernel_refuses_non_contiguous_compact_tables(table):
+    """One check guards both kernel families, which walk the same compact
+    tables: the traversal kernels and the fused BVH kernels."""
+    scene = cornell_box_mesh(8, 8, subdiv=8, use_bvh=True, device="cpu")
+    o = torch.zeros((4, 3))
+    if table == "nodes":
+        nodes = scene.bvh.nodes.t().contiguous().t()
+        bad = scene._replace(bvh=scene.bvh._replace(nodes=nodes))
+    elif table == "tri_rows":
+        bad = scene._replace(tri_rows=scene.tri_rows.t().contiguous().t())
+    else:
+        bad = scene._replace(tri_mat=torch.stack([scene.tri_mat] * 2, 1)[:, 0])
+    assert not getattr(bad.bvh if table == "nodes" else bad, table).is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        check_bvh_scene(bad, o, o)
+
+
+def test_kernel_refuses_trees_of_2_24_nodes():
+    """A stack entry holds a node index in 24 bits: 2^24 nodes are
+    refused (a stride-0 view stands in for the 4 GiB table)."""
+    scene = cornell_box_mesh(8, 8, subdiv=8, use_bvh=True, device="cpu")
+    o = torch.zeros((4, 3))
+    for m, ok in (((1 << 24) - 1, True), (1 << 24, False)):
+        nodes = scene.bvh.nodes[:1].expand(m, TB.NODE_WORDS)
+        big = scene._replace(bvh=scene.bvh._replace(nodes=nodes))
+        with pytest.raises(ValueError, match="contiguous" if ok else "2\\^24"):
+            check_bvh_scene(big, o, o)
 
 
 @pytest.fixture(scope="module")
@@ -268,7 +299,7 @@ def test_compact_walk_matches_packed_oracle(name):
 def test_compact_walk_counts_the_tests_a_traversal_needs(name):
     """The compact walk's counts (internal nodes expanded, rows tested up
     to each leaf's last real row) equal traverse_packed_ref's given perm,
-    which counts no pad row: the same nodes as bvh_trace's walk, fewer
+    which counts no pad row: the same nodes as the packed walk, fewer
     tests than its LEAF_SIZE a leaf."""
     packed, tris, nodes, rows, (o, d, t_max) = _compact_case(name)
     for mode, tm in (("closest", None), ("any", t_max)):

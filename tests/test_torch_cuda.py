@@ -127,12 +127,86 @@ def test_bvh_kernels_match_plain_and_oracle(dev, mesh):
         np.testing.assert_array_equal(occ.cpu().numpy() > 0, occ_r)
 
 
+def _hold_traversal_kernels(mesh, o, d, t_max):
+    """Kernel 4 on (o, d) against the plain sweep (t within 1e-5, rows
+    equal but on ties) and the numpy oracle (t and rows bit for bit,
+    flags equal)."""
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import traverse_packed_ref
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh_cuda import bvh_any_raw, bvh_closest_raw
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import intersect_any, intersect_closest_raw
+
+    tris = (mesh.tri_v0, mesh.tri_e0, mesh.tri_e1)
+    n = o.shape[0]
+    before = bvh_closest_raw.launches, bvh_any_raw.launches
+    tk, ik = bvh_closest_raw(o, d, mesh)
+    occ = bvh_any_raw(o, d, mesh, t_max)
+    torch.cuda.synchronize()
+    assert (bvh_closest_raw.launches, bvh_any_raw.launches) == (before[0] + (n > 0),
+                                                                 before[1] + (n > 0))
+    assert tk.shape == (n,) and ik.shape == (n,) and occ.shape == (n,)
+    tp, ip = intersect_closest_raw(o, d, *tris)
+    hit = tp < 3.0e38
+    assert bool(((tk < 3.0e38) == hit).all())
+    rel = (tk - tp).abs() / tp.abs()
+    assert bool((rel[hit] <= 1e-5).all()) and bool(((ik == ip) | (rel <= 1e-6)).all())
+    assert bool(((occ > 0) == intersect_any(o, d, *tris, t_max)).all())
+    tr, ir, _ = traverse_packed_ref(mesh.bvh.box, mesh.bvh.meta, *tris, o, d)
+    np.testing.assert_array_equal(tk.cpu().numpy(), tr)
+    np.testing.assert_array_equal(ik.cpu().numpy(), ir)
+    occ_r, _ = traverse_packed_ref(mesh.bvh.box, mesh.bvh.meta, *tris, o, d, "any", t_max)
+    np.testing.assert_array_equal(occ.cpu().numpy() > 0, occ_r)
+
+
+# kernel 4 on the compact tables at sizes below one block and ragged
+@pytest.mark.parametrize("n", [0, 1, 37, 4133])
+def test_bvh_kernels_any_launch_size(dev, mesh, n):
+    o, d, t_max = _rays(dev, n=max(n, 4), seed=7)
+    _hold_traversal_kernels(mesh, o[:n], d[:n], t_max[:n])
+
+
+def test_traversal_kernels_on_a_deeper_tree(dev):
+    """Kernel 4 on a tree of depth 8 whose 396 KB of compact nodes exceed
+    L1 (the mesh Cornell box at subdivision 128), on camera and random
+    rays, against the plain sweep and the oracle."""
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
+
+    big = cornell_box_mesh(32, 32, subdiv=128, device=dev)
+    assert big.bvh.depth >= 7 and big.bvh.nodes.numel() * 4 > 256 * 1024
+    ro, rd, t_max = _rays(dev, n=2048)
+    co, cd = _camera_rays(dev, big, 2)[3:]
+    _hold_traversal_kernels(big, co, cd, t_max)
+    _hold_traversal_kernels(big, ro, rd, t_max)
+
+
+# the brute-force fused kernel (1 and 1h) at sizes below one block
+@pytest.mark.parametrize("sampler", ["hash", "halton"])
+@pytest.mark.parametrize("n", [0, 1, 37])
+def test_fused_bruteforce_any_launch_size(dev, scene, sampler, n):
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+
+    px, py, sample, o, d = (x[:n] for x in _camera_rays(dev, scene, 1, sampler=sampler))
+    before = trace_paths_fused.launches
+    rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=5, sampler=sampler)
+    assert rk.shape == (n, 3)
+    assert trace_paths_fused.launches == before + (n > 0)
+    rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=5, sampler=sampler,
+                                                   backend="torch"),
+                        px, py, sample, o, d, device=dev)
+    diff = (rk - rp).abs()
+    assert bool(torch.isfinite(rk).all())
+    if n:
+        assert float(diff.mean()) < 1e-4
+        assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
 # the Cornell box, the conductor / Lambert / area-light scene, the mesh
 # Cornell box through the fused kernel's BVH mode and through the
 # wavefront (fused="off": kernel 4 on sorted rays, and on rays in their
 # own order with sort_rays="off"), and a brute-force scene whose tables
 # need more than 48 KB of shared memory (the mesh Cornell box at
-# subdivision 24 without a BVH, 87.6 KB: the kernel raises its limit)
+# subdivision 24 without a BVH, 105 KB of 48 B rows and shading tables:
+# the kernel raises its limit)
 @pytest.mark.parametrize(
     "case", ["cornell", "mixed", "mesh", "mesh_wavefront", "mesh_wavefront_unsorted",
              "tables_over_48kb"]
@@ -154,6 +228,7 @@ def test_fused_kernel_matches_trace_paths(dev, scene, mesh, case):
     if case == "tables_over_48kb":
         scene = cornell_box_mesh(32, 32, subdiv=24, use_bvh=False, device=dev)
         assert scene.bvh is None and 48 * 1024 < table_bytes(scene) <= MAX_SMEM_BYTES
+        assert table_bytes(scene) == 4 * scene.brute_tables.numel()
     spp = 4
     px, py, sample, o, d = _camera_rays(dev, scene, spp)
     before = trace_paths_fused.launches, bvh_closest_raw.launches

@@ -85,3 +85,84 @@ def test_kernel_wrappers_refuse_oversized_tables():
     o = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="BVH"):
         TC._check_rays(o, o, TC.tri_table(big, big, big))
+
+
+def _cull_case(name, n=4096):
+    """(o, d, v0, e0, e1, t_cap) of a seeded case for the fused kernel's
+    cull: a soup of 48 triangles of sizes 0.01-10 and rays aimed at them,
+    at random, at points on their edges and corners (edge-grazing), nearly
+    in their planes (near-parallel: det near the 1e-7 cutoff) or starting
+    a hair in front of them (near-origin: t near T_MIN); t_cap random, at
+    the sweep's bound BIG_T, or a few ulp above or below each ray's t."""
+    rs = np.random.default_rng({"random": 21, "grazing": 22, "parallel": 23,
+                                "near_origin": 24}[name])
+    t = 48
+    scale = 10.0 ** rs.uniform(-2, 1, (t, 1))
+    v0 = rs.uniform(-3, 3, (t, 3))
+    e0 = rs.normal(size=(t, 3)) * scale
+    e1 = rs.normal(size=(t, 3)) * scale
+    k = rs.integers(0, t, n)
+    normal = np.cross(e0[k], e1[k])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    if name == "random":
+        o = rs.uniform(-6, 6, (n, 3))
+        d = rs.normal(size=(n, 3))
+    else:
+        u, v = rs.random(n), rs.random(n)
+        side = rs.integers(0, 4, n)  # on v = 0, u = 0, u + v = 1, or a corner
+        u = np.where(side == 1, 0.0, u)
+        v = np.where(side == 0, 0.0, v)
+        edge = side == 2
+        v = np.where(edge, 1.0 - u, v)
+        u = np.where(side == 3, rs.integers(0, 2, n), u)
+        v = np.where(side == 3, 0.0, v)
+        jitter = rs.choice([-1.0, 0.0, 1.0], (n, 2)) * 10.0 ** rs.uniform(-9, -6, (n, 2))
+        u, v = u + jitter[:, 0], v + jitter[:, 1]
+        target = v0[k] + u[:, None] * e0[k] + v[:, None] * e1[k]
+        if name == "parallel":
+            along = np.cross(normal, rs.normal(size=(n, 3)))
+            along /= np.linalg.norm(along, axis=1, keepdims=True)
+            tilt = rs.choice([-1.0, 1.0], (n, 1)) * 10.0 ** rs.uniform(-9, -3, (n, 1))
+            d = along + tilt * normal
+            o = target - rs.uniform(0.1, 5.0, (n, 1)) * d / np.linalg.norm(d, axis=1,
+                                                                        keepdims=True)
+        else:
+            d = rs.normal(size=(n, 3))
+            dist = (rs.uniform(0.1, 5.0, (n, 1)) if name == "grazing"
+                    else 1e-4 * (1.0 + rs.uniform(-1e-3, 1e-3, (n, 1))))
+            o = target - dist * d / np.linalg.norm(d, axis=1, keepdims=True)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    o, d, v0, e0, e1 = (f(a) for a in (o, d, v0, e0, e1))
+    t_hit, _ = TI.intersect_closest_raw(o, d, v0, e0, e1)
+    which = rs.integers(0, 4, n)
+    ulp = torch.from_numpy(rs.integers(-3, 4, n).astype(np.float32))
+    near = t_hit * (1.0 + ulp * 2.0**-23)
+    rand = f(rs.uniform(0.05, 8.0, n))
+    t_cap = torch.where(torch.from_numpy(which == 0), torch.full_like(rand, TI.BIG_T), rand)
+    t_cap = torch.where(torch.from_numpy(which >= 2) & (t_hit < TI.BIG_T), near, t_cap)
+    return o, d, v0, e0, e1, t_cap
+
+
+@pytest.mark.parametrize("name", ["random", "grazing", "parallel", "near_origin"])
+def test_sweep_cull_never_rejects_a_hit(name):
+    """The fused kernel's cull before the division (``mt_cull``) never
+    rejects a pair that the plain sweep accepts below the sweep's limit
+    (exactly: not one pair), nor the winner of ``intersect_closest_raw``
+    at the least limit above its t, and it rejects most of the rest."""
+    o, d, v0, e0, e1, t_cap = _cull_case(name)
+    cull = TI.mt_cull(o, d, v0, e0, e1, t_cap)
+    t = TI._mt_candidates(o, d, v0, e0, e1)
+    accept = t < t_cap[:, None]
+    assert accept.sum() > 100
+    assert not bool((cull & accept).any())
+    assert float(cull[~accept].float().mean()) > 0.5
+    # the winner of the closest-hit sweep, tested against the least limit
+    # above its t, and every occluder of the any-hit sweep
+    t_best, i_best = TI.intersect_closest_raw(o, d, v0, e0, e1)
+    hit = t_best < TI.BIG_T
+    above = torch.nextafter(t_best, torch.tensor(float("inf")))
+    cull_w = TI.mt_cull(o, d, v0, e0, e1, above)
+    assert not bool(cull_w[torch.arange(o.shape[0]), i_best][hit].any())
+    occ = TI.intersect_any(o, d, v0, e0, e1, t_cap)
+    assert bool(((~cull & accept).any(1) == occ).all())

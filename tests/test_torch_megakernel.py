@@ -236,3 +236,35 @@ def test_render_halton_mitchell_matches_reference():
     box = render(cornell_box(hw, hw, device="cpu"), hw, hw, spp,
                  cfg=MegakernelConfig(max_depth=DEPTH, sampler="halton"), device="cpu")
     assert not np.array_equal(box.mean.numpy(), t_film.mean.numpy())  # the filter acts
+
+
+@pytest.mark.parametrize("case", ["cornell", "mixed", "tables_over_48kb"])
+def test_brute_tables_built_once_per_scene(case):
+    """A brute-force scene carries its fused kernel's shared-memory blob,
+    built once with the scene: 48 B rows that unpack to tri_v0 / e0 / e1
+    and tri_mat exactly (the id as int32 bits, zero padding), then the
+    shading tables; ``table_bytes`` is its size. A BVH scene has none."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import table_bytes
+    from cuda_optix_pathtracing_tpu_torch.ops.shade_tables import BRUTE_ROW_WORDS
+    from cuda_optix_pathtracing_tpu_torch.scene.types import scene_to
+
+    if case == "mixed":
+        scene = t_from_host(build_mixed(THost, TB, TL, TCam, W, H), use_light_tree=False,
+                            device="cpu")
+    elif case == "tables_over_48kb":
+        scene = cornell_box_mesh(W, H, subdiv=24, use_bvh=False, device="cpu")
+    else:
+        scene = cornell_box(W, H, device="cpu")
+    blob = scene.brute_tables
+    n = scene.num_triangles
+    assert blob is not None and blob.dtype == torch.float32 and blob.is_contiguous()
+    assert table_bytes(scene) == 4 * blob.numel()
+    rows = blob[:BRUTE_ROW_WORDS * n].reshape(n, BRUTE_ROW_WORDS)
+    for c, a in ((0, scene.tri_v0), (4, scene.tri_e0), (8, scene.tri_e1)):
+        np.testing.assert_array_equal(rows[:, c:c + 3].numpy(), a.numpy())
+    np.testing.assert_array_equal(rows[:, 3].view(torch.int32).numpy(), scene.tri_mat.numpy())
+    assert not rows[:, 7].any() and not rows[:, 11].any()
+    np.testing.assert_array_equal(blob[BRUTE_ROW_WORDS * n:].numpy(), scene.shade_tables.numpy())
+    assert scene_to(scene, "cpu").brute_tables is blob
+    mesh = cornell_box_mesh(8, 8, subdiv=8, use_bvh=True, device="cpu")
+    assert mesh.brute_tables is None and table_bytes(mesh) == 4 * mesh.shade_tables.numel()
