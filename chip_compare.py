@@ -18,6 +18,14 @@ checkout's kernels (all checkouts' kernels are built first, at once).
   box at 256², one spp (65,536 camera paths, the main path's launch),
   depth 5: device time per launch (``torch.profiler``), hash and Halton,
   and a SHA-256 digest of each one's radiance;
+- ``k23``, the brute-force closest-hit and any-hit kernels (kernels 2
+  and 3): every launch of one ``fused="off"`` render of the Cornell box
+  at 256², 8 spp, depth 5 (40 + 40 launches of 65,536 rays), recorded
+  (``chip_smoke.record_brute_launches``) and replayed with the arguments
+  the integrator gave: device time per launch, digests of the (t, index)
+  and the flags of all launches, and of the render's film; and, from a
+  traced render of one spp, the route's kernel launches on the host and
+  device-busy time per spp;
 - ``k4``, the traversal kernels (kernel 4): every closest-hit and any-hit
   launch of one ``fused="off"`` render of the mesh leg (below), recorded
   (``chip_smoke.record_bvh_launches``) and replayed: device time per
@@ -55,7 +63,7 @@ import chip_smoke as S
 
 SPP = 16
 DEPTH = 5
-GROUPS = ("k1", "k4", "k56")
+GROUPS = ("k1", "k23", "k4", "k56")
 
 
 def package():
@@ -89,6 +97,43 @@ def measure_k1(out: dict) -> None:
 
         out[f"digest_k1_{smp}"] = digest(run())
         out[f"k1_{smp}"] = S.kernel_ms(run, 20, ("::pt_fused_kernel<", "BruteGeo", policy))
+
+
+def measure_k23(out: dict) -> None:
+    import torch
+
+    MK, _, cornell_box, _ = package()
+    scene = cornell_box(S.W, S.H, device=torch.device("cuda"))
+    tris = scene.tri_v0, scene.tri_e0, scene.tri_e1
+    film = {}
+
+    def render():
+        film["off"] = MK.render(scene, S.W, S.H, spp=S.SPP_OFF,
+                                cfg=MK.MegakernelConfig(fused="off"))
+
+    rec = S.record_brute_launches(MK, render)
+    IC = MK.intersect_cuda
+    out["digest_k23_film_off"] = digest(film["off"].mean)
+    closest = [IC.closest_bruteforce(o, d, *tris, **kw) for (o, d), kw in rec["closest"]]
+    anyhit = [IC.anyhit_bruteforce(o, d, *tris, tm, **kw) for (o, d, tm), kw in rec["any"]]
+    out["digest_k23_closest"] = digest(*(x for pair in closest for x in pair))
+    out["digest_k23_any"] = digest(*anyhit)
+
+    def replay_closest():
+        for (o, d), kw in rec["closest"]:
+            IC.closest_bruteforce(o, d, *tris, **kw)
+
+    def replay_any():
+        for (o, d, tm), kw in rec["any"]:
+            IC.anyhit_bruteforce(o, d, *tris, tm, **kw)
+
+    out["k2_closest"] = S.kernel_ms(replay_closest, 4, "::closest_kernel(",
+                                    per_call=len(rec["closest"]))
+    out["k3_any"] = S.kernel_ms(replay_any, 4, "::anyhit_kernel(", per_call=len(rec["any"]))
+    busy, _, n_launch, _, _ = S.traced_render(
+        lambda: MK.render(scene, S.W, S.H, spp=1, cfg=MK.MegakernelConfig(fused="off")), 1, {})
+    out["k23_off_host_launches_per_spp"] = n_launch
+    out["k23_off_device_busy_ms_per_spp"] = busy * 1e3
 
 
 def measure_k4(out: dict) -> None:
@@ -178,7 +223,7 @@ def measure(groups) -> dict:
 
     out = {"kind": torch.cuda.get_device_name(0)}
     for g in groups:
-        {"k1": measure_k1, "k4": measure_k4, "k56": measure_k56}[g](out)
+        {"k1": measure_k1, "k23": measure_k23, "k4": measure_k4, "k56": measure_k56}[g](out)
     return out
 
 

@@ -749,64 +749,10 @@ __device__ void sample_area(const float* em, int k_em, float3 pos, float u1, flo
 // geometry policies: the closest hit and the shadow query
 // ---------------------------------------------------------------------------
 
-// The brute-force sweep's cull: a triangle is rejected before the
-// division only where mt_test would reject it. With a = |det| >= 1e-7 (a
-// parallel triangle is rejected as mt_test rejects it) and the numerators
-// U, V, T of u, v, t signed by det, mt_test's u = fl(fl(1/det) * U/sign)
-// is (U / a)(1 + e), |e| < 3 * 2^-24, and the products a * c below round
-// once more (the arguments are normal floats: a * c >= 1e-14):
-// - U < -a * CULL_LO gives u < -2e-7 (1 - 2^-22) < -MT_TOLERANCE; V alike;
-// - U + V > a * CULL_HI (the sum rounded once; u, v >= -2e-7 there) gives
-//   fl(u + v) > 1 + 3.7e-6 > 1 + MT_TOLERANCE;
-// - T <= a * CULL_TMIN gives t <= 0.99e-4 (1 + 2^-22) < T_MIN, which takes
-//   in T of the opposite sign to det (t < 0);
-// - T >= a * (t_cap * CULL_TCAP) gives t > t_cap, which mt_test rejects
-//   too (an overflow to inf culls nothing; t_cap <= T_MIN rejects all).
-// A triangle that passes runs the rest of mt_test on the same rounded
-// values (the division and the hit decision), so t, u, v and the hit are
-// mt_test's bit for bit. ops/intersect.py mt_cull is its plain version.
-#define CULL_LO 2e-7f
-#define CULL_HI 1.000004f
-#define CULL_TMIN 0.99e-4f
-#define CULL_TCAP 1.000004f
-
-// mt_test against row r = [v0, . | e0, . | e1, .] with the cull before the
-// division; cap = t_cap * CULL_TCAP.
-__device__ __forceinline__ bool sweep_test(float3 o, float3 d, const float4* r, float t_cap,
-                                           float cap, float& t, float& u, float& v) {
-  const float4 p0 = r[0], e0 = r[1], e1 = r[2];
-  const float px = mul_sub_rn(d.y, e1.z, d.z, e1.y);
-  const float py = mul_sub_rn(d.z, e1.x, d.x, e1.z);
-  const float pz = mul_sub_rn(d.x, e1.y, d.y, e1.x);
-  const float det = dot3_rn(px, e0.x, py, e0.y, pz, e0.z);
-  const float tx = o.x - p0.x, ty = o.y - p0.y, tz = o.z - p0.z;
-  const float qx = mul_sub_rn(ty, e0.z, tz, e0.y);
-  const float qy = mul_sub_rn(tz, e0.x, tx, e0.z);
-  const float qz = mul_sub_rn(tx, e0.y, ty, e0.x);
-  const float un = dot3_rn(px, tx, py, ty, pz, tz);
-  const float vn = dot3_rn(qx, d.x, qy, d.y, qz, d.z);
-  const float tn = dot3_rn(qx, e1.x, qy, e1.y, qz, e1.z);
-  const float a = fabsf(det);
-  const bool neg = det < 0.0f;
-  const float us = neg ? -un : un, vs = neg ? -vn : vn, ts = neg ? -tn : tn;
-  const float lo = -__fmul_rn(a, CULL_LO);
-  // one predicate, one branch: a warp whose lanes all cull skips the rest
-  if ((a < MT_TOLERANCE) | (us < lo) | (vs < lo) |
-      (__fadd_rn(us, vs) > __fmul_rn(a, CULL_HI)) | (ts <= __fmul_rn(a, CULL_TMIN)) |
-      (ts >= __fmul_rn(a, cap)))
-    return false;
-  const float inv_det = 1.0f / det;
-  u = __fmul_rn(inv_det, un);
-  v = __fmul_rn(inv_det, vn);
-  t = __fmul_rn(inv_det, tn);
-  return (u >= -MT_TOLERANCE) & (v >= -MT_TOLERANCE) &
-         (__fadd_rn(u, v) <= 1.0f + MT_TOLERANCE) & (t > T_MIN) & (t < t_cap);
-}
-
 // Brute force: every triangle, staged in shared memory as rows of three
 // float4s [v0, material id (int32 bits) | e0, 0 | e1, 0] (48 B: three
 // 16-byte loads a test), built once per scene (ops/shade_tables.py
-// pack_brute_tables), tested with sweep_test (the cull before the
+// pack_brute_tables), tested with sweep_test (common.cuh: the cull before the
 // division). The winner is the first index of the least t (strict t < tb,
 // in index order).
 struct BruteGeo {

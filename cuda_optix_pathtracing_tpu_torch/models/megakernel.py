@@ -52,6 +52,7 @@ from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_r
 from ..ops.lights import AREA, eval_light, sample_area_light, sample_light
 from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
 from ..ops.raysort import ray_sort_key, sorted_apply, sorted_apply_tmax
+from ..ops.shade_tables import BRUTE_ROW_WORDS
 from ..ops.vecmath import dot, max_component, offset_ray_origin, sqr
 from ..scene.types import Scene, scene_to
 
@@ -137,6 +138,12 @@ def _sort_key(scene: Scene, o, d, alive):
     return ray_sort_key(o, d, scene.bounds[0], scene.bounds[1], alive)
 
 
+def _brute_rows(scene: Scene):
+    """The brute-force kernels' 48 B triangle rows: the head of the
+    scene's ``brute_tables`` (a view, built once per scene)."""
+    return scene.brute_tables[: BRUTE_ROW_WORDS * scene.tri_v0.shape[0]]
+
+
 def _closest(scene: Scene, cfg, o, d, alive=None):
     if not _use_kernels(cfg, o):
         t, i = intersect_closest_raw(
@@ -153,7 +160,7 @@ def _closest(scene: Scene, cfg, o, d, alive=None):
             t, i = bvh_cuda.bvh_closest_raw(o, d, scene)
     else:
         t, i = intersect_cuda.closest_bruteforce(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, rows=_brute_rows(scene)
         )
     return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
 
@@ -174,7 +181,7 @@ def _any(scene: Scene, cfg, o, d, t_max, alive=None):
             occ = bvh_cuda.bvh_any_raw(o, d, scene, t_max)
         return occ > 0
     return intersect_cuda.anyhit_bruteforce(
-        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max
+        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, rows=_brute_rows(scene)
     )
 
 

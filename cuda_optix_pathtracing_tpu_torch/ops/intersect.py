@@ -12,9 +12,11 @@ Triangles are SoA ``v0, e0, e1`` (T, 3) with ``e0 = p1 - p0``,
 ``e1 = p2 - p0``; the geometric normal is ``cross(e1, e0)`` normalized.
 
 ``mt_cull`` is the plain version of the cull that the brute-force fused
-kernel's sweeps make before the division (``csrc/megakernel.cu``
-``sweep_test``); only the tests use it, to hold it to the sweeps here: it
-never rejects a pair they accept.
+kernel's sweeps and the any-hit kernel make before the division
+(``csrc/common.cuh`` ``sweep_test``), and ``closest_split_ref`` the plain
+model of the closest-hit kernel's split of a ray over several lanes; only
+the tests use them, to hold them to the sweeps here: the cull never
+rejects a pair they accept, and the split finds the same winner.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ MT_TOLERANCE = 1e-7
 T_MIN = 1e-4
 BIG_T = 3.0e38
 
-# the fused kernel's cull bounds (csrc/megakernel.cu CULL_*), float32
+# the brute-force sweeps' cull bounds (csrc/common.cuh CULL_*), float32
 CULL_LO, CULL_HI, CULL_TMIN, CULL_TCAP = 2e-7, 1.000004, 0.99e-4, 1.000004
 
 
@@ -91,14 +93,14 @@ def _mt_candidates(o, d, v0, e0, e1):
 
 
 def mt_cull(o, d, v0, e0, e1, t_cap):
-    """(N, T) bool: the pairs that the brute-force fused kernel's sweep
-    rejects before the division, where ``t_cap`` (N,) is the sweep's limit
+    """(N, T) bool: the pairs that the brute-force fused kernel's sweeps
+    and the any-hit kernel reject before the division, where ``t_cap`` (N,) is the sweep's limit
     (the best t so far, or the shadow ray's t_max), computed as the kernel
     computes it. With a = |det| and the numerators signed by det, a pair is
     rejected when parallel, when u's or v's numerator is below −a·CULL_LO,
     their sum above a·CULL_HI, t's numerator at most a·CULL_TMIN, or at
     least a·(t_cap·CULL_TCAP): each implies that ``_mt_candidates``'s t is
-    invalid or not below t_cap (``csrc/megakernel.cu`` says why)."""
+    invalid or not below t_cap (``csrc/common.cuh`` says why)."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
     det, un, vn, tn = _mt_numerators(o, d, v0, e0, e1)
     a = torch.abs(det)
@@ -127,6 +129,24 @@ def intersect_closest_raw(o, d, v0, e0, e1, chunk: int = 32):
         better = t_b < best_t
         best_t = torch.where(better, t_b, best_t)
         best_i = torch.where(better, base + i_l, best_i)
+    return best_t, best_i
+
+
+def closest_split_ref(o, d, v0, e0, e1, k: int):
+    """Plain model of the closest-hit kernel's split of a ray over ``k``
+    lanes (``csrc/intersect.cu``): lane l sweeps triangles l, l + k, ...
+    and keeps the first index of its least t (BIG_T/0 on a miss), then the
+    lanes reduce to the lexicographic least (t, index), as the kernel's
+    shuffles do. Equal to ``intersect_closest_raw`` bit for bit; only the
+    tests call it."""
+    best_t = torch.full((o.shape[0],), BIG_T, dtype=torch.float32, device=o.device)
+    best_i = torch.zeros((o.shape[0],), dtype=torch.int64, device=o.device)
+    for lane in range(k):
+        t, i = intersect_closest_raw(o, d, v0[lane::k], e0[lane::k], e1[lane::k])
+        i = torch.where(t < BIG_T, lane + k * i, 0)
+        better = (t < best_t) | ((t == best_t) & (i < best_i))
+        best_t = torch.where(better, t, best_t)
+        best_i = torch.where(better, i, best_i)
     return best_t, best_i
 
 

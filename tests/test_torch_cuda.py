@@ -7,6 +7,8 @@ GPU machine with
 (``--noconftest``: the suite's conftest configures JAX, which the port and
 these tests do not need). Imports nothing of JAX or the reference."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -55,12 +57,7 @@ def test_closest_kernel_matches_plain(dev, scene):
     tp, ip = closest_plain(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
     torch.cuda.synchronize()
     assert closest_bruteforce.launches == before + 1
-    dt = (tk - tp).abs()
-    tie = dt <= 1e-6 * tp.abs()
-    assert bool(((ik == ip) | tie).all())
-    both = tp < 3.0e38
-    assert bool(((tk < 3.0e38) == both).all())
-    assert bool((dt[both] <= 1e-5 * tp[both]).all())
+    assert torch.equal(tk, tp) and torch.equal(ik, ip)
     assert bool((tk[:4] == 3.0e38).all())
 
 
@@ -70,8 +67,136 @@ def test_anyhit_kernel_matches_plain(dev, scene):
     o, d, t_max = _rays(dev)
     ok = anyhit_bruteforce(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max)
     op = any_plain(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max)
-    assert float((ok == op).float().mean()) >= 0.999
+    assert torch.equal(ok, op)
     assert not bool(ok[:4].any())
+
+
+def _hold_brute_kernels(o, d, v0, e0, e1, t_max, rows=None):
+    """Kernels 2 and 3 against their plain versions: t, index and flags
+    equal on every row, one launch each."""
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+
+    before = IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches
+    tk, ik = IC.closest_bruteforce(o, d, v0, e0, e1, rows=rows)
+    ok = IC.anyhit_bruteforce(o, d, v0, e0, e1, t_max, rows=rows)
+    tp, ip = IC.closest_plain(o, d, v0, e0, e1)
+    op = IC.any_plain(o, d, v0, e0, e1, t_max)
+    torch.cuda.synchronize()
+    n = o.shape[0]
+    launched = int(n > 0)
+    assert (IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches) == (
+        before[0] + launched, before[1] + launched)
+    assert tk.dtype == torch.float32 and ik.dtype == torch.int64 and ok.dtype == torch.bool
+    assert tk.shape == ik.shape == ok.shape == (n,)
+    assert torch.equal(tk, tp) and torch.equal(ik, ip) and torch.equal(ok, op)
+    return tk, ik, ok
+
+
+# kernels 2 and 3 at a single ray, below one warp and ragged past one launch
+# of the main path, with the scene's rows and with rows packed by the wrapper
+@pytest.mark.parametrize("n", [0, 1, 31, 65_537])
+def test_brute_kernels_any_launch_size(dev, scene, n):
+    o, d, t_max = _rays(dev, n=max(n, 4), seed=9)
+    o, d, t_max = o[:n], d[:n], t_max[:n]
+    tris = scene.tri_v0, scene.tri_e0, scene.tri_e1
+    rows = scene.brute_tables[: 12 * scene.tri_v0.shape[0]]
+    _hold_brute_kernels(o, d, *tris, t_max, rows=rows)
+    _hold_brute_kernels(o, d, *tris, t_max)
+
+
+def test_brute_kernels_on_duplicated_triangles(dev, scene):
+    """Every triangle twice (the copies shuffled): the closest hit ties
+    between copies, and the index must be the plain version's, the first,
+    on every row."""
+    tris = [x.clone() for x in (scene.tri_v0, scene.tri_e0, scene.tri_e1)]
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(tris[0].shape[0]), device=dev)
+    v0, e0, e1 = (torch.cat([x, x[perm]]) for x in tris)
+    o, d, t_max = _rays(dev, n=20_000, seed=5)
+    tk, ik, _ = _hold_brute_kernels(o, d, v0, e0, e1, t_max)
+    assert int((tk < 3.0e38).sum()) > 1000
+
+
+def test_anyhit_kernel_t_max_scalar_and_per_ray(dev, scene):
+    """t_max as a Python number (by value), a one-element tensor and a 0-d
+    tensor (stride 0), per ray and as a strided view of a wider tensor."""
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect_cuda import any_plain, anyhit_bruteforce
+
+    o, d, t_max = _rays(dev, n=4099, seed=6)
+    tris = scene.tri_v0, scene.tri_e0, scene.tri_e1
+    wide = torch.stack([t_max, -t_max], 1).reshape(-1)
+    for tm in (2.0, torch.tensor([2.0], device=dev), torch.tensor(0.7, device=dev), t_max,
+               wide[::2]):
+        ok = anyhit_bruteforce(o, d, *tris, tm)
+        op = any_plain(o, d, *tris, tm)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, op)
+        assert 0 < int(ok.sum()) < o.shape[0]
+
+
+def test_brute_kernels_one_device_kernel_per_call(dev, scene):
+    """With the scene's rows, a call of either wrapper runs exactly one
+    kernel on the device, its own: no table, cast, compare or copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect_cuda import (
+        anyhit_bruteforce,
+        closest_bruteforce,
+    )
+
+    o, d, t_max = _rays(dev, n=65_536, seed=8)
+    tris = scene.tri_v0, scene.tri_e0, scene.tri_e1
+    rows = scene.brute_tables[: 12 * scene.tri_v0.shape[0]]
+    calls = (
+        ("closest_kernel", lambda: closest_bruteforce(o, d, *tris, rows=rows)),
+        ("anyhit_kernel", lambda: anyhit_bruteforce(o, d, *tris, t_max, rows=rows)),
+        ("anyhit_kernel", lambda: anyhit_bruteforce(o, d, *tris, 2.0, rows=rows)),
+    )
+    for name, call in calls:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        rows_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        assert [(name in e.key, e.count) for e in rows_dev] == [(True, 1)], [
+            (e.key, e.count) for e in rows_dev]
+
+
+def test_brute_kernels_refuse_oversized_tables(dev):
+    """The wrappers refuse a table over MAX_TRIS with the BVH hint; the C
+    entry points return a CUDA error for a table over the shared memory a
+    block can have, called directly, and launch at MAX_TRIS (227 KB: the
+    kernels raise their shared-memory limit)."""
+    import ctypes
+
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import pack_tri_rows
+
+    o, d, t_max = _rays(dev, n=64, seed=2)
+    big = torch.zeros((IC.MAX_TRIS + 1, 3), device=dev)
+    with pytest.raises(ValueError, match="BVH"):
+        IC.closest_bruteforce(o, d, big, big, big)
+    with pytest.raises(ValueError, match="BVH"):
+        IC.anyhit_bruteforce(o, d, big, big, big, t_max)
+    rows = pack_tri_rows(big, big, big)
+    best_t = torch.empty(64, device=dev)
+    best_i = torch.empty(64, dtype=torch.int64, device=dev)
+    occ = torch.empty(64, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = IC._lib()
+    for n_tris, want in ((IC.MAX_TRIS + 1, False), (IC.MAX_TRIS, True)):
+        rc_c = lib.closest_bruteforce(o.data_ptr(), d.data_ptr(), rows.data_ptr(), 64, n_tris,
+                                      best_t.data_ptr(), best_i.data_ptr(), stream)
+        rc_a = lib.anyhit_bruteforce(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), 1,
+                                     ctypes.c_float(0.0), rows.data_ptr(), 64, n_tris,
+                                     occ.data_ptr(), stream)
+        torch.cuda.synchronize()
+        assert (rc_c == 0, rc_a == 0) == (want, want), (n_tris, rc_c, rc_a)
+    # a degenerate table: every triangle is parallel to every ray
+    assert bool((best_t == 3.0e38).all()) and bool((best_i == 0).all()) and not bool(occ.any())
 
 
 def _mixed_scene(dev):
