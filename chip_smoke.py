@@ -68,8 +68,19 @@ Phases (each fails loudly; there is no CPU fallback):
    Mpaths/s of repeated renders of both scenes and routes, of the
    ``fused="off"`` route with and without the ray sort and Morton pixel
    order, and of the depth-sorted wavefront against the fused kernel in
-   turns; traced renders' device-busy shares; then one JSON line with
-   every kernel, and as the last line ``{"ok": true, "device": ...}``.
+   turns; traced renders' device-busy shares;
+5. gradients (``models/differentiable.py``; the ``fused="off"`` route with
+   path replay, kernels 2 and 3 in the forward pass and again in the
+   replay): bench.py's albedo-gradient step (256², depth 5, 4 spp as one
+   262,144-path pass, launch counters zeroed just before and read just
+   after) on the kernel route against the plain sweep; replay per bounce
+   and per two bounces against stored activations, with peak memory;
+   finite differences at 32², depth 2; three Adam steps whose loss must
+   fall, then the optimised scene through the fused kernel against
+   ``trace_paths``; a mesh step through kernel 4 against the plain sweep;
+   fwd+bwd Mpaths/s as bench.py times it, and one traced step;
+then one JSON line with every kernel, and as the last line
+``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -77,6 +88,7 @@ Exits non-zero without a result when CUDA is unavailable.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -133,6 +145,18 @@ SHADE_FLOPS = 800
 SLAB_FLOPS = 25
 BOUND_SAMPLE = 2048
 PROFILE_MARGIN_S = 0.02  # idle card at each end of a profiler session
+# the gradient phase: bench.py's fwd_bwd leg (bench.py:56-88): 4 spp traced
+# as one 262,144-path pass per step, the albedo gradient, path replay
+GRAD_SPP = 4
+GRAD_ITERS = 4  # steps per timed run, two runs (bench.py:_fwd_bwd)
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-9  # the reference's remat test bar
+ADAM_STEPS = 3
+# finite differences at a small size and the reference test's depth 2:
+# roulette (from depth 2 on) kills paths by comparing a function of the
+# albedo with a random number, a step a central difference straddles
+FD_SIZE, FD_SPP, FD_DEPTH = 32, 2, 2
+FD_CASES = (("albedo", (2, 0)), ("light_color", (0, 0)))  # tests/test_gradients.py
+GRAD_MESH_SUBDIV, GRAD_MESH_SIZE, GRAD_MESH_SPP = 16, 64, 2
 FLOOR_THREADS = W * H  # the empty kernel's launch: the main path's 65,536 rays
 # an empty kernel, built beside the port's kernels: the card's per-launch
 # floor, timed beside the bounds
@@ -721,6 +745,181 @@ def check_means_agree(label, film_a, film_b) -> None:
     check(bool(((m_a - m_b).abs() <= tol).all()),
           f"{label} image means agree within 5 sigma: "
           f"{m_a.tolist()} vs {m_b.tolist()}, tol {tol.tolist()}")
+
+
+def gradients_phase(MK, zero, read, tag: str, kernel_names: dict) -> None:
+    """Phase 5: gradients on the card, no CPU fallback. (a) The albedo
+    gradient of bench.py's step down the kernel route (kernels 2 and 3, in
+    the forward pass and in the replay) against the plain sweep; (b) path
+    replay (per bounce, per two bounces) against stored activations, with
+    peak memory; (c) finite differences at a small size; (d) Adam steps
+    from a perturbed albedo, then the optimised scene through the fused
+    kernel against trace_paths; (e) a mesh step through kernel 4 against
+    the plain sweep; (f) the step's fwd+bwd Mpaths/s as bench.py times it,
+    and one traced step."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.models import differentiable as D
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh
+
+    dev = torch.device("cuda")
+    n_paths = W * H * GRAD_SPP
+    print(f"phase 5: gradients, fused='off' with path replay ({W}x{H}, depth {DEPTH}, "
+          f"{GRAD_SPP} spp as one {n_paths}-path pass, albedo) {tag}")
+    scene = cornell_box(W, H, device=dev)
+    zeros = torch.zeros((H, W, 3), device=dev)
+
+    def cfg_of(**kw):
+        return MK.MegakernelConfig(**{"max_depth": DEPTH, **kw})
+
+    def grad_of(sc, cfg, w=W, h=H, spp=GRAD_SPP, target=None):
+        target = torch.zeros((h, w, 3), device=dev) if target is None else target
+        loss = D.make_loss(sc, cfg, w, h, spp, target, spp_per_pass=spp)
+        params = D.init_params(sc, ("albedo",))
+        val = loss(params)
+        val.backward()
+        torch.cuda.synchronize()
+        return float(val.detach()), params["albedo"].grad
+
+    def hold(label, g, g_ref):
+        torch.cuda.synchronize()
+        nz = g_ref != 0
+        rel = float(((g - g_ref).abs()[nz] / g_ref.abs()[nz]).max()) if nz.any() else 0.0
+        check(bool(torch.isfinite(g).all()) and int(nz.sum()) > 0
+              and torch.allclose(g, g_ref, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+              f"{label}: albedo gradients within rtol {GRAD_RTOL:g}, atol {GRAD_ATOL:g} "
+              f"(largest relative difference {rel:.3e}, {int(nz.sum())} nonzero entries)")
+
+    # (a) the kernel route against the plain sweep; the step's launches
+    zero()
+    t0 = time.perf_counter()
+    loss_k, g_k = grad_of(scene, cfg_of())
+    dt_k = time.perf_counter() - t0
+    launches = read()
+    print(f"  (a) gradient step, kernel route: {launches}, {dt_k:.3f} s (first step) {tag}")
+    check(launches["closest_bruteforce"] == 2 * DEPTH and launches["anyhit_bruteforce"] == 2 * DEPTH
+          and launches["trace_paths_fused"] == 0,
+          f"the gradient step went through kernels 2 and 3, {DEPTH} + {DEPTH} launches in the "
+          f"forward pass and {DEPTH} + {DEPTH} in the replay")
+    loss_p, g_p = grad_of(scene, cfg_of(backend="torch"))
+    check(math.isclose(loss_k, loss_p, rel_tol=1e-6) and loss_k > 0.0,
+          f"(a) losses agree on both routes ({loss_k:.9g}, {loss_p:.9g})")
+    hold("(a) kernel route vs backend='torch'", g_k, g_p)
+
+    # (b) path replay against stored activations, with peak memory
+    peaks, grads = {}, {}
+    for label, kw in (("remat", {}), ("stored", dict(remat=False)),
+                      ("remat_every=2", dict(remat_every=2))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, grads[label] = grad_of(scene, cfg_of(**kw))
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print("  (b) peak memory above the scene's, per step: " + ", ".join(
+        f"{k} {v:.3f} GiB" for k, v in peaks.items()) + f" {tag}")
+    hold("(b) remat=False vs remat=True", grads["stored"], grads["remat"])
+    hold("(b) remat_every=2 vs remat=True", grads["remat_every=2"], grads["remat"])
+    hold("(b) remat=True vs phase (a)", grads["remat"], g_k)
+
+    # (c) finite differences at a small size (the reference's bar)
+    small = cornell_box(FD_SIZE, FD_SIZE, device=dev)
+    loss_s = D.make_loss(small, cfg_of(max_depth=FD_DEPTH), FD_SIZE, FD_SIZE, FD_SPP,
+                         torch.zeros((FD_SIZE, FD_SIZE, 3), device=dev))
+    for key, idx in FD_CASES:
+        auto, fd = D.fd_gradient_check(loss_s, D.init_params(small, (key,)), key, idx, eps=1e-2)
+        ok = abs(auto - fd) <= 1e-7 + 2e-2 * abs(fd)
+        check(ok and abs(fd) > 1e-9 and math.isfinite(auto),
+              f"(c) {key}{idx} at {FD_SIZE}x{FD_SIZE}, {FD_SPP} spp, depth {FD_DEPTH}: autodiff {auto:.6e}, central "
+              f"difference {fd:.6e} (rtol 2e-2, atol 1e-7)")
+
+    # (d) a trainer: Adam from a perturbed albedo towards the true one's image
+    with torch.no_grad():
+        target = D.render_mean(scene, cfg_of(), W, H, GRAD_SPP, spp_per_pass=GRAD_SPP)
+    params = {"albedo": torch.clamp(scene.materials.albedo + 0.2, 0.0, 1.0).requires_grad_(True)}
+    loss = D.make_loss(scene, cfg_of(), W, H, GRAD_SPP, target, spp_per_pass=GRAD_SPP)
+    opt = torch.optim.Adam(params.values(), lr=5e-2)
+    losses = []
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        val = loss(params)
+        val.backward()
+        opt.step()
+        losses.append(float(val.detach()))
+    check(losses[-1] < losses[0], f"(d) Adam (lr 5e-2), {ADAM_STEPS} steps: the loss falls "
+          f"{', '.join(f'{v:.6e}' for v in losses)}")
+    opt_scene = D.inject_params(scene, {"albedo": params["albedo"].detach()})
+    check(MK.resolve_fused(opt_scene, MK.MegakernelConfig()).fused == "on",
+          "(d) the optimised scene resolves to the fused kernel")
+    px, py, sample, o, d = camera_rays(opt_scene, PARITY_SPP)
+    rad_k = trace_paths_fused(opt_scene, px, py, sample, o, d, max_depth=DEPTH)
+    rad_0 = trace_paths_fused(scene, px, py, sample, o, d, max_depth=DEPTH)
+    rad_p = MK.trace_paths(opt_scene, cfg_of(backend="torch", fused="off"), px, py, sample, o, d,
+                           device=dev)
+    check_parity("(d) fused kernel on the optimised scene", rad_k, rad_p, PARITY_SPP)
+    moved = float((rad_k - rad_0).abs().reshape(PARITY_SPP, -1, 3).sum(0).mean()) / PARITY_SPP
+    check(moved > 1e-4, f"(d) the fused kernel read the rebuilt tables: mean abs pixel change "
+          f"{moved:.3e} from the scene before the steps (> 1e-4, the parity bar)")
+
+    # (e) the mesh Cornell box through kernel 4 (sorted route) vs the sweep
+    mesh = cornell_box_mesh(GRAD_MESH_SIZE, GRAD_MESH_SIZE, subdiv=GRAD_MESH_SUBDIV, device=dev)
+    mkw = dict(w=GRAD_MESH_SIZE, h=GRAD_MESH_SIZE, spp=GRAD_MESH_SPP)
+    zero()
+    t0 = time.perf_counter()
+    _, gm_k = grad_of(mesh, cfg_of(), **mkw)
+    dt_mk = time.perf_counter() - t0
+    launches_m = read()
+    t0 = time.perf_counter()
+    _, gm_p = grad_of(mesh, cfg_of(backend="torch"), **mkw)
+    dt_mp = time.perf_counter() - t0
+    print(f"  (e) mesh (subdivision {GRAD_MESH_SUBDIV}, {mesh.num_triangles} packed rows, "
+          f"{GRAD_MESH_SIZE}x{GRAD_MESH_SIZE}, {GRAD_MESH_SPP} spp in one pass): kernel route "
+          f"{launches_m}, {dt_mk:.3f} s; plain sweep {dt_mp:.3f} s {tag}")
+    check(launches_m["bvh_closest_raw"] == 2 * DEPTH and launches_m["bvh_any_raw"] == 2 * DEPTH,
+          f"(e) the mesh gradient step went through kernel 4, {DEPTH} + {DEPTH} launches in the "
+          f"forward pass and {DEPTH} + {DEPTH} in the replay")
+    hold("(e) mesh kernel route vs backend='torch'", gm_k, gm_p)
+
+    # (f) timing as bench.py:_fwd_bwd: a warm step, then two runs of
+    # GRAD_ITERS steps, each ending in a sync; then one traced step
+    loss = D.make_loss(scene, cfg_of(), W, H, GRAD_SPP, zeros, spp_per_pass=GRAD_SPP)
+    p = D.init_params(scene)
+
+    def step():
+        p["albedo"].grad = None
+        loss(p).backward()
+
+    step()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in range(GRAD_ITERS):
+            step()
+        torch.cuda.synchronize()
+        vals.append(n_paths * GRAD_ITERS / (time.perf_counter() - t0) / 1e6)
+    spread = abs(vals[0] - vals[1]) / max(vals)
+    wall = n_paths / (sum(vals) / 2 * 1e6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p["albedo"].grad = None
+    val = loss(p)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    val.backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    print(f"  (f) fwd+bwd {max(vals):.4f} Mpaths/s (best of two runs of {GRAD_ITERS} steps: "
+          f"{vals[0]:.4f}, {vals[1]:.4f}; spread {spread:.4f}); {1e3 * wall:.1f} ms per step, "
+          f"one more step: forward {1e3 * t_fwd:.1f} ms, backward {1e3 * t_bwd:.1f} ms {tag}")
+    busy, per_k, n_launch, n_sync, wall_tr = traced_render(
+        step, 1, {k: kernel_names[k] for k in ("closest", "anyhit")})
+    ks = ", ".join(f"{name} {n} launches {t * 1e3:.4f} ms" for name, (n, t) in per_k.items())
+    check(all(n == 2 * DEPTH for n, _ in per_k.values()),
+          f"(f) the traced step ran kernels 2 and 3 {2 * DEPTH} times each")
+    print(f"  (f) traced step: {n_launch:.0f} kernel launches, {n_sync:.0f} stream syncs; device "
+          f"busy {1e3 * busy:.2f} ms ({100 * busy / wall:.1f} % of the untraced {1e3 * wall:.1f} "
+          f"ms); {ks} (forward and replay); traced wall {1e3 * wall_tr:.1f} ms {tag}")
 
 
 def main() -> int:
@@ -1648,6 +1847,7 @@ def main() -> int:
               f"the untraced wall); kernels in the whole render: {ks}; "
               f"{n_launch:.1f} kernel launches, {n_sync:.1f} stream syncs; "
               f"traced wall {wall_tr * 1e3:.3f} ms {tag}")
+    gradients_phase(MK, zero, read, tag, kernel_names)
     print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

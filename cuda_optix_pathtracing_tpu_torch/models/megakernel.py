@@ -39,6 +39,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops import bvh_cuda, intersect_cuda
@@ -63,6 +64,12 @@ class MegakernelConfig:
     rr_start_depth: int = 2  # roulette active from this depth on
     sampler: str = "hash"  # "hash" | "halton" (Owen-scrambled, dims < 12)
     seed: int = 0
+    remat: bool = True  # recompute bounces in backward (path replay)
+    remat_every: int = 1  # bounces per checkpoint group: 1 = classic
+    # per-bounce path replay (minimum memory); k>1 stores activations
+    # within each k-bounce group and replays only group boundaries —
+    # fewer recomputed traversals in the backward at k× the activation
+    # memory
     tri_chunk: int = 32  # triangles per step of the plain sweep
     env_nee: bool = False  # envmap NEE (slice 5); outside the fused set
     backend: str = "auto"  # "auto" | "torch" | "cuda": intersection
@@ -102,6 +109,8 @@ def _validate(cfg: MegakernelConfig) -> None:
         raise ValueError(f"unknown pixel_order {cfg.pixel_order!r}")
     if cfg.sort_rays not in ("auto", "on", "off"):
         raise ValueError(f"unknown sort_rays {cfg.sort_rays!r}")
+    if cfg.remat_every < 1:
+        raise ValueError(f"remat_every must be >= 1, got {cfg.remat_every}")
 
 
 def _use_kernels(cfg: MegakernelConfig, t: torch.Tensor) -> bool:
@@ -393,9 +402,43 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
         sample = sample.to(dev)
     sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
     state = init_path_state(o.shape[0], o, d)
-    for depth in range(cfg.max_depth):
-        state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
-    return state.radiance
+
+    def bounces(depths, state):
+        for depth in depths:
+            state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
+        return state
+
+    if cfg.remat and _needs_grad(scene, state):
+        # path replay: the backward pass recomputes each group of
+        # remat_every bounces from its input state and the counter-based
+        # RNG (no stateful generator is drawn from, so the RNG state is not
+        # stashed). Non-reentrant checkpointing keeps the gradients to the
+        # scene's tables, which the bounces close over.
+        k = cfg.remat_every
+        for start in range(0, cfg.max_depth, k):
+            depths = range(start, min(start + k, cfg.max_depth))
+            state = checkpoint(
+                bounces, depths, state, use_reentrant=False, preserve_rng_state=False
+            )
+        return state.radiance
+    return bounces(range(cfg.max_depth), state).radiance
+
+
+def _needs_grad(scene: Scene, state: PathState) -> bool:
+    """Will autograd record this trace: grad on, and a tensor of the scene
+    or of the path state requiring it? A forward-only render keeps the
+    plain loop."""
+    if not torch.is_grad_enabled():
+        return False
+
+    def any_grad(x) -> bool:
+        if torch.is_tensor(x):
+            return x.requires_grad
+        if isinstance(x, tuple):
+            return any(any_grad(f) for f in x)
+        return False
+
+    return any_grad(scene) or any_grad(state)
 
 
 def _use_morton(cfg, scene, width, height) -> bool:

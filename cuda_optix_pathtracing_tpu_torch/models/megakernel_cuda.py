@@ -93,7 +93,8 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     filter runs outside the kernel and is not checked. The reference
     refuses BVH scenes whose node meta table exceeds 255 KB, the TPU's SMEM
     budget for kernel inputs; here the node table is read from global
-    memory, so only the traversal stacks bound the tree (its depth)."""
+    memory, so only the traversal stacks bound the tree (its depth). Like
+    the reference, it refuses an environment whose texels differ."""
     if cfg.sampler not in SAMPLERS or cfg.env_nee:
         return False
     if cfg.light_strategy == "tree":
@@ -107,6 +108,11 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     if AREA in ltypes and scene.emissive is None:
         return False
     if scene.bvh is not None and not stack_fits(scene.bvh.depth):
+        return False
+    # a constant environment only: the kernels read its colour from the
+    # shading tables (optimised texels may differ, models/differentiable)
+    img = scene.env.image.detach().cpu().reshape(-1, 3)
+    if not bool((img == img[0]).all()):
         return False
     return table_bytes(scene) <= MAX_SMEM_BYTES
 

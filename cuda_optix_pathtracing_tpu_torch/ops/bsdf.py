@@ -91,16 +91,18 @@ class MaterialTable(NamedTuple):
 
 
 def mat_features_from_table(t: MaterialTable) -> MatFeatures:
-    """Feature set of a concrete material table."""
-    mtype = t.mtype.cpu().numpy()
+    """Feature set of a concrete material table (read through
+    ``.detach()``, so a table of optimised parameters works too)."""
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    mtype = host(t.mtype)
     types = set(mtype.tolist())
     ggx_rows = np.isin(mtype, (GGX_DIELECTRIC, GGX_CONDUCTOR))
-    ax = t.alphax.cpu().numpy()[ggx_rows]
-    ay = t.alphay.cpu().numpy()[ggx_rows]
+    ax = host(t.alphax)[ggx_rows]
+    ay = host(t.alphay)[ggx_rows]
     diel_rows = mtype == GGX_DIELECTRIC
     has_trans = bool(
         np.any(
-            np.max(t.trans_tint.cpu().numpy()[diel_rows], axis=-1, initial=0.0)
+            np.max(host(t.trans_tint)[diel_rows], axis=-1, initial=0.0)
             > THROUGHPUT_EPS
         )
     )

@@ -11,6 +11,9 @@ padded arrays (``ops/intersect.py``), which is what the reference computes
 for BVH scenes off the TPU. Pad rows have zero edges and never hit. The
 kernel may pick another row than the sweep where two triangles tie in t.
 ``launches`` on each wrapper counts kernel launches and nothing else.
+The launching branch is wrapped in ``ops/autodiff.nondiff_kernel`` (zero
+gradient to the rays and ``t_max``); the plain version stays
+differentiable through its own ops.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import functools
 import torch
 
 from . import _cuda_build
+from .autodiff import nondiff_kernel
 from .bvh import COMPACT_STACK, stack_fits
 from .intersect import intersect_any, intersect_closest_raw
 
@@ -75,6 +79,11 @@ def bvh_closest_raw(o, d, scene):
     BIG_T and row 0 on a miss."""
     if not o.is_cuda:
         return intersect_closest_raw(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
+    return _closest_launch(o, d, scene)
+
+
+@nondiff_kernel
+def _closest_launch(o, d, scene):
     o, d = o.contiguous(), d.contiguous()
     check_bvh_scene(scene, o, d)
     n = o.shape[0]
@@ -99,6 +108,11 @@ def bvh_any_raw(o, d, scene, t_max):
     T_MIN < t < t_max."""
     if not o.is_cuda:
         return intersect_any(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max).to(torch.int32)
+    return _any_launch(o, d, scene, t_max)
+
+
+@nondiff_kernel
+def _any_launch(o, d, scene, t_max):
     o, d = o.contiguous(), d.contiguous()
     check_bvh_scene(scene, o, d)
     n = o.shape[0]

@@ -13,6 +13,9 @@ scene, or ``ops/bvh.pack_tri_rows``, which a call without ``rows`` builds)
 and write the index as int64 and the flag as bool, so on the card a call
 with contiguous rays and ``rows`` given is one kernel launch and nothing
 else.
+The launching branch is wrapped in ``ops/autodiff.nondiff_kernel`` (zero
+gradient to the rays and triangles, as the reference wraps its Pallas
+calls); the plain version stays differentiable through its own ops.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numbers
 import torch
 
 from . import _cuda_build
+from .autodiff import nondiff_kernel
 from .bvh import pack_tri_rows
 from .intersect import intersect_any as any_plain
 from .intersect import intersect_closest_raw as closest_plain
@@ -101,6 +105,11 @@ def closest_bruteforce(o, d, v0, e0, e1, rows=None):
     """Closest hit of every ray → (best_t (N,) f32, best_i (N,) int64)."""
     if not o.is_cuda:
         return closest_plain(o, d, v0, e0, e1)
+    return _closest_launch(o, d, v0, e0, e1, rows)
+
+
+@nondiff_kernel
+def _closest_launch(o, d, v0, e0, e1, rows):
     rows, n_tris = _rows(v0, e0, e1, rows)
     o, d = o.contiguous(), d.contiguous()
     _check_rays(o, d, rows)
@@ -125,6 +134,11 @@ def anyhit_bruteforce(o, d, v0, e0, e1, t_max, rows=None):
     """Occlusion flag (N,) bool: a hit at T_MIN < t < t_max."""
     if not o.is_cuda:
         return any_plain(o, d, v0, e0, e1, t_max)
+    return _any_launch(o, d, v0, e0, e1, t_max, rows)
+
+
+@nondiff_kernel
+def _any_launch(o, d, v0, e0, e1, t_max, rows):
     rows, n_tris = _rows(v0, e0, e1, rows)
     o, d = o.contiguous(), d.contiguous()
     _check_rays(o, d, rows)

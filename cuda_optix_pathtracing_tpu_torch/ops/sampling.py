@@ -1,13 +1,14 @@
 """Sampling primitives (counterpart of the reference ``ops/sampling.py``):
-the disk, cosine-hemisphere, cone and sphere samplers and the ray-sphere
-hit the spot light needs. Batched over leading dims; directions built on a
+the disk, cosine-hemisphere, cone and sphere samplers, the ray-sphere
+hit the spot light needs and the environment map's direction → (u, v)
+map. Batched over leading dims; directions built on a
 normal use the ``gram_schmidt`` frame."""
 
 from __future__ import annotations
 
 import torch
 
-from .vecmath import INV_PI, PI, dot, gram_schmidt, safe_sqrt
+from .vecmath import INV_PI, PI, dot, gram_schmidt, safe_acos, safe_sqrt
 
 
 def sample_uniform_disk(u1, u2):
@@ -84,3 +85,16 @@ def ray_sphere_intersect(ray_o, ray_d, t_min, t_max, center, radius):
     hit = (~away) & (~outside_ray) & (t > t_min) & (t < t_max)
     p = ray_o + ray_d * t[..., None]
     return hit, t, p
+
+
+def map_to_sphere(co):
+    """Direction → (u, v) spherical map: u = ½ − atan2(x, y)/2π,
+    v = 1 − acos(z/|co|)/π; u = 0 on the z axis, (0, 0) for a zero vector."""
+    l2 = dot(co, co)
+    x, y, z = co[..., 0], co[..., 1], co[..., 2]
+    u = torch.where(
+        (x == 0.0) & (y == 0.0), 0.0, 0.5 - torch.atan2(x, y) * (0.5 * INV_PI)
+    )
+    v = 1.0 - safe_acos(z / torch.clamp(torch.sqrt(l2), min=1e-20)) * INV_PI
+    zero = l2 <= 0.0
+    return torch.where(zero, 0.0, u), torch.where(zero, 0.0, v)
