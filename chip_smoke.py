@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Two scenes, each down every route of the port:
+Two procedural scenes, each down every route of the port, then the
+bundled scene files (phase 6):
 
 - the Cornell box (26 triangles, brute force): the fused kernel
   ``pt_fused_bruteforce`` and, with ``fused="off"``, the closest-hit and
@@ -79,6 +80,21 @@ Phases (each fails loudly; there is no CPU fallback):
    fall, then the optimised scene through the fused kernel against
    ``trace_paths``; a mesh step through kernel 4 against the plain sweep;
    fwd+bwd Mpaths/s as bench.py times it, and one traced step;
+6. scene files (``scene/parser.py``, ``scene/pbrt.py``), launch counters
+   zeroed just before and read just after each run: ``scene_test.json``
+   (the textured teapot: 9,216 triangles and a BVH, three 1K textures with
+   their mip chains, shading normals and a normal map) through
+   ``load_scene`` and ``render()`` at its authored 256², 32 spp, depth 12,
+   through kernel 4, with Mpaths/s, kernel-4 launches per spp and the
+   device-busy share of one traced spp; the kernel route against
+   ``backend="torch"`` at 2 spp on ``scene_test.json`` and on
+   ``scene_example.json`` (the HDR veranda map, env NEE on; kernels 2 and
+   3) at the parity bar; kernel 4 at every recorded launch of one
+   textured spp against the plain sweep; ``cornell-box.pbrt`` through
+   kernel 1 against ``trace_paths``; no fused kernel in the profiler's
+   trace of ``fbx_example.json`` (shading normals) or ``scene_test.json``;
+   the CLI on ``scene_test.json`` at its authored settings, writing its
+   PNGs to ``chiprun_out/``;
 then one JSON line with every kernel, and as the last line
 ``{"ok": true, "device": ...}``.
 
@@ -158,6 +174,17 @@ FD_SIZE, FD_SPP, FD_DEPTH = 32, 2, 2
 FD_CASES = (("albedo", (2, 0)), ("light_color", (0, 0)))  # tests/test_gradients.py
 GRAD_MESH_SUBDIV, GRAD_MESH_SIZE, GRAD_MESH_SPP = 16, 64, 2
 FLOOR_THREADS = W * H  # the empty kernel's launch: the main path's 65,536 rays
+# phase 6, scene files: scene_test.json at its authored 256², 32 spp,
+# depth 12 (its film and camera sections), the kernel route against the
+# plain one at SCENE_PARITY_SPP samples in one pass, and the PBRT Cornell
+# box through kernel 1 at PARITY_SPP
+SCENE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes")
+SCENE_PARITY_SPP = 2
+SCENE_KSPP = 8  # samples per progressive batch, the CLI's default
+SCENE_K4_STRIDE = 4  # kernel 4's recorded launches: every 4th ray held to
+# the plain sweep (each ray's result depends on that ray alone)
+SCENE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                         "scene_test.png")
 # an empty kernel, built beside the port's kernels: the card's per-launch
 # floor, timed beside the bounds
 FLOOR_CU = r"""
@@ -920,6 +947,209 @@ def gradients_phase(MK, zero, read, tag: str, kernel_names: dict) -> None:
     print(f"  (f) traced step: {n_launch:.0f} kernel launches, {n_sync:.0f} stream syncs; device "
           f"busy {1e3 * busy:.2f} ms ({100 * busy / wall:.1f} % of the untraced {1e3 * wall:.1f} "
           f"ms); {ks} (forward and replay); traced wall {1e3 * wall_tr:.1f} ms {tag}")
+
+
+def scene_files_phase(MK, zero, read, tag: str, kernel_names: dict) -> None:
+    """Phase 6: the bundled scene files on the card, no CPU fallback."""
+    import dataclasses
+
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops.bsdf import mat_features_from_table
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import intersect_any, intersect_closest_raw
+    from cuda_optix_pathtracing_tpu_torch.scene import load_pbrt, load_scene
+    from cuda_optix_pathtracing_tpu_torch.utils import cli
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    print(f"phase 6: scene files {tag}")
+
+    def cfg_for(scene, **kw):
+        return MK.MegakernelConfig(features=mat_features_from_table(scene.materials), **kw)
+
+    # (1) scene_test.json at its authored size through load_scene and render()
+    t0 = time.perf_counter()
+    test, parsed = load_scene(os.path.join(SCENE_DIR, "scene_test.json"), device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    sw, sh, spp, depth = parsed.width, parsed.height, parsed.spp, parsed.max_depth
+    check((sw, sh, spp, depth) == (256, 256, 32, 12),
+          f"(1) scene_test.json: {sw}x{sh}, {spp} spp, depth {depth} from the file; "
+          f"{int((test.bvh.perm >= 0).sum())} triangles in {test.num_triangles} packed rows, "
+          f"BVH depth {test.bvh.depth}; {test.textures.num_textures} textures, "
+          f"{test.textures.texels.shape[0]} texels with their mip chains on the device; "
+          f"loaded in {t_load:.2f} s")
+    cfg = cfg_for(test, max_depth=depth)
+    check(MK.resolve_fused(test, cfg).fused == "off",
+          "(1) the textured scene resolves to the plain integrator (the fused gate refuses it)")
+    MK.render(test, sw, sh, spp=1, cfg=cfg)  # warm: first launches of each op
+    zero()
+    t0 = time.perf_counter()
+    film = MK.render(test, sw, sh, spp=spp, cfg=cfg, kspp=SCENE_KSPP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read()
+    mpaths = sw * sh * spp / dt / 1e6
+    print(f"  (1) render: {launches}")
+    check(launches["bvh_closest_raw"] > 0 and launches["bvh_any_raw"] > 0
+          and launches["trace_paths_fused"] == 0 and launches["bounce_fused"] == 0,
+          f"(1) the render went through kernel 4: {launches['bvh_closest_raw'] / spp:g} closest-hit "
+          f"and {launches['bvh_any_raw'] / spp:g} any-hit launches per spp, no fused kernel")
+    mean = film.mean
+    check(bool(torch.isfinite(mean).all()) and float(mean.mean()) > 0.0 and float(film.n) == spp,
+          f"(1) film finite, mean {float(mean.mean()):.5f} > 0, {int(film.n)} samples")
+    print(f"  (1) scene_test.json {sw}x{sh}x{spp} depth {depth}: {dt:.3f} s, {mpaths:.4f} Mpaths/s "
+          f"(host clock around render(), kspp {SCENE_KSPP}) {tag}")
+    one_spp = lambda: MK.render_sample_batch(test, cfg, sw, sh, 0)  # noqa: E731
+    one_spp()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_spp()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, per_k, n_launch, n_sync, wall_tr = traced_render(
+        one_spp, 1, {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
+    ks = ", ".join(f"{name} {n} launches {t * 1e3:.3f} ms ({t * 1e3 / max(n, 1):.4f} ms each)"
+                   for name, (n, t) in per_k.items())
+    print(f"  (1) traced spp: {1e3 * wall:.3f} ms untraced wall, device busy {1e3 * busy:.3f} ms "
+          f"({100 * busy / wall:.1f} %); {ks}; {n_launch:.0f} kernel launches, {n_sync:.0f} "
+          f"stream syncs; traced wall {1e3 * wall_tr:.3f} ms {tag}")
+
+    # (2) the kernel route against the plain one on the same paths
+    def hold_route(label, scene, cfg, counted):
+        zero()
+        t0 = time.perf_counter()
+        img_k = MK.render_sample_batch(scene, cfg, sw, sh, 0, nspp=SCENE_PARITY_SPP)
+        got = read()
+        t_k = time.perf_counter() - t0
+        img_p = MK.render_sample_batch(scene, dataclasses.replace(cfg, backend="torch"), sw, sh, 0,
+                                       nspp=SCENE_PARITY_SPP)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0 - t_k
+        check(all(got[c] > 0 for c in counted) and got["trace_paths_fused"] == 0,
+              f"(2) {label}: the kernel route launched " + ", ".join(
+                  f"{c} {got[c]}" for c in counted) + " times, no fused kernel")
+        err = check_parity(f"(2) {label}, {SCENE_PARITY_SPP} spp", img_k, img_p, SCENE_PARITY_SPP,
+                           ref="backend='torch'")
+        print(f"  (2) {label}: films bit-equal: {bool(torch.equal(img_k, img_p))}, max abs "
+              f"pixel difference {err:.3e}; one pass of {SCENE_PARITY_SPP} spp: kernel route "
+              f"{t_k:.3f} s, plain {t_p:.3f} s (host clock) {tag}")
+        return got
+
+    hold_route("scene_test.json", test, cfg, ("bvh_closest_raw", "bvh_any_raw"))
+    example, ex_parsed = load_scene(os.path.join(SCENE_DIR, "scene_example.json"), device=dev)
+    check(not example.env.uniform and example.env.image.shape[:2] == (512, 1024),
+          "(2) scene_example.json carries the 512x1024 veranda map and its sampling tables")
+    ex_launch = {}
+    for env_nee in (True, False):
+        ex_cfg = cfg_for(example, max_depth=ex_parsed.max_depth, env_nee=env_nee)
+        check(MK.resolve_fused(example, ex_cfg).fused == "off",
+              f"(2) scene_example.json (env_nee={env_nee}) resolves to the plain integrator")
+        if env_nee:
+            got = hold_route("scene_example.json, env_nee=True", example, ex_cfg,
+                             ("closest_bruteforce", "anyhit_bruteforce"))
+        else:
+            zero()
+            MK.render_sample_batch(example, ex_cfg, sw, sh, 0, nspp=SCENE_PARITY_SPP)
+            got = read()
+        ex_launch[env_nee] = got
+    fbx, fbx_parsed = load_scene(os.path.join(SCENE_DIR, "fbx_example.json"), device=dev)
+    fbx_cfg = cfg_for(fbx, max_depth=fbx_parsed.max_depth)
+    zero()
+    MK.render_sample_batch(fbx, fbx_cfg, sw, sh, 0, nspp=SCENE_PARITY_SPP)
+    fbx_launch = read()
+    for label, got in (("scene_example.json, env_nee=True", ex_launch[True]),
+                       ("scene_example.json, env_nee=False", ex_launch[False]),
+                       ("fbx_example.json", fbx_launch)):
+        print(f"  launches per spp, {label} (depth 12): kernel 2 "
+              f"{got['closest_bruteforce'] / SCENE_PARITY_SPP:g}, kernel 3 "
+              f"{got['anyhit_bruteforce'] / SCENE_PARITY_SPP:g} (one pass of "
+              f"{SCENE_PARITY_SPP} spp)")
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 6)")
+
+    # (3) kernel 4 at every recorded launch of one textured spp, each
+    # launch's output on every SCENE_K4_STRIDE-th ray held to the sweep
+    rec = record_bvh_launches(MK, one_spp)
+    v0, e0, e1 = test.tri_v0, test.tri_e0, test.tri_e1
+    k4_err, n_rays, n_diff = 0.0, 0, 0
+    for i, (o, d) in enumerate(rec["closest"]):
+        sub = slice(None, None, SCENE_K4_STRIDE)
+        tk, ik = BV.bvh_closest_raw(o, d, test)
+        tp, ip = intersect_closest_raw(o[sub], d[sub], v0, e0, e1)
+        k4_err = max(k4_err, check_closest(f"(3) bvh_closest launch {i}", tk[sub], ik[sub], tp, ip))
+        n_rays += tp.shape[0]
+    for o, d, t_max in rec["any"]:
+        sub = slice(None, None, SCENE_K4_STRIDE)
+        occ_k = BV.bvh_any_raw(o, d, test, t_max)[sub] > 0
+        occ_p = intersect_any(o[sub], d[sub], v0, e0, e1, t_max[sub])
+        torch.cuda.synchronize()
+        n_diff += int((occ_k != occ_p).sum())
+        n_rays += occ_p.shape[0]
+    check(n_diff == 0 and len(rec["closest"]) == depth and len(rec["any"]) == depth,
+          f"(3) kernel 4 at the textured render's {len(rec['closest'])} + {len(rec['any'])} "
+          f"recorded launches of {rec['closest'][0][0].shape[0]} rays (every "
+          f"{SCENE_K4_STRIDE}th, {n_rays} in all): hits as the plain sweep's, any-hit flags "
+          f"equal ({n_diff} differ); max abs t error {k4_err:.3e}")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 6)")
+
+    # (4) the PBRT Cornell box through kernel 1
+    box, meta = load_pbrt(os.path.join(SCENE_DIR, "cornell-box.pbrt"), device=dev)
+    box_cfg = cfg_for(box, max_depth=DEPTH)
+    check(MK.resolve_fused(box, box_cfg).fused == "on" and (meta.width, meta.height) == (W, H),
+          f"(4) cornell-box.pbrt ({box.num_triangles} triangles, {box.emissive.v0.shape[0]} "
+          f"emissive, {meta.width}x{meta.height}) resolves to the fused kernel")
+    px, py, sample, o, d = camera_rays(box, PARITY_SPP)
+    zero()
+    rad_k = MKC.trace_paths_fused(box, px, py, sample, o, d, max_depth=DEPTH)
+    got = read()
+    rad_p = MK.trace_paths(box, dataclasses.replace(box_cfg, backend="torch", fused="off"),
+                           px, py, sample, o, d, device=dev)
+    check(got["trace_paths_fused"] == 1, "(4) one launch of kernel 1")
+    err_box = check_parity(f"(4) cornell-box.pbrt through kernel 1 ({PARITY_SPP} spp, depth "
+                           f"{DEPTH})", rad_k, rad_p, PARITY_SPP)
+    zero()
+    MK.render(box, W, H, spp=PARITY_SPP, cfg=box_cfg)
+    got = read()
+    check(got["trace_paths_fused"] == PARITY_SPP,
+          f"(4) render(cornell-box.pbrt): one kernel-1 launch per spp ({got}); max abs pixel "
+          f"difference at the parity check {err_box:.3e}")
+
+    # (5) the gate on the card: no fused kernel on the two scenes it refuses
+    # (device activity only: the kernels' names are all this reads)
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, scene, scfg in (("fbx_example.json", fbx, fbx_cfg), ("scene_test.json", test, cfg)):
+        zero()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            MK.render(scene, sw, sh, spp=1, cfg=scfg)
+            torch.cuda.synchronize()
+        names = [e.key for e in device_rows(prof.key_averages())]
+        fused = [k for k in names if "pt_fused" in k or "pt_bounce" in k]
+        got = read()
+        check(not fused and got["trace_paths_fused"] == 0 and got["bounce_fused"] == 0
+              and len(names) > 0,
+              f"(5) {label}: the profiler saw {len(names)} device kernels, none of them "
+              f"pt_fused_* or pt_bounce_*")
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 6)")
+
+    # (6) the CLI on scene_test.json at its authored settings
+    os.makedirs(os.path.dirname(SCENE_OUT), exist_ok=True)
+    zero()
+    t0 = time.perf_counter()
+    rc = cli.main(["--scene", os.path.join(SCENE_DIR, "scene_test.json"), "--out", SCENE_OUT,
+                   "--log-level", "warning"])
+    dt_cli = time.perf_counter() - t0
+    got = read()
+    base, ext = os.path.splitext(SCENE_OUT)
+    check(rc == 0 and os.path.getsize(SCENE_OUT) > 0 and os.path.getsize(base + "_sqrt_mse" + ext) > 0
+          and got["bvh_closest_raw"] > 0 and got["trace_paths_fused"] == 0,
+          f"(6) the CLI rendered scene_test.json ({sw}x{sh}, {spp} spp, depth {depth}) through "
+          f"kernel 4 in {dt_cli:.2f} s and wrote {SCENE_OUT} and its sqrt-MSE PNG")
+    print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s {tag}")
 
 
 def main() -> int:
@@ -1848,6 +2078,7 @@ def main() -> int:
               f"{n_launch:.1f} kernel launches, {n_sync:.1f} stream syncs; "
               f"traced wall {wall_tr * 1e3:.3f} ms {tag}")
     gradients_phase(MK, zero, read, tag, kernel_names)
+    scene_files_phase(MK, zero, read, tag, kernel_names)
     print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

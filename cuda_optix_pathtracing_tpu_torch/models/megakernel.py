@@ -1,12 +1,21 @@
 """Megakernel integrator in PyTorch (counterpart of the reference
-``models/megakernel.py``), limited to the fused kernel's feature set.
+``models/megakernel.py``).
 
-Estimator (NEE + one-sample power-heuristic MIS for area lights +
-Russian roulette, transmission tracking):
+Estimator (NEE + one-sample power-heuristic MIS for area lights and the
+environment + Russian roulette, transmission tracking):
 
-    L += β · Le · f·cosθ · w / (pmf · pdf_light)   (area lights)
-    L += β · Le · f·cosθ / pmf                      (point/spot lights)
+    L += β · Le · f·cosθ · w / (pmf · pdf_light)   (area lights, env NEE)
+    L += β · Le · f·cosθ / pmf                      (point/spot/directional)
     β *= f·cosθ / pdf_bsdf                          (bounce)
+
+Scenes from files add textures (albedo, roughness and tangent-space
+normal maps, filtered trilinearly or by bounded-tap EWA at a ray-cone
+LOD: the path carries the cone's width and spread), per-corner shading
+normals and an HDR environment, importance-sampled each bounce with
+``env_nee`` and MIS-weighted against the miss shader. Only the plain
+PyTorch integrator shades them; the fused kernels refuse such scenes
+(``megakernel_cuda_supported``), so their intersection queries still go
+to kernels 2, 3 and 4.
 
 Two routes down the same path:
 
@@ -46,15 +55,23 @@ from ..ops import bvh_cuda, intersect_cuda
 from ..ops import rng as R
 from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
 from ..ops.camera import generate_rays, pixel_centers
-from ..ops.envmap import eval_envmap
+from ..ops.envmap import env_radiance, eval_envmap, sample_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
 from ..ops.filters import filter_sampler, sample_filter
 from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_raw
-from ..ops.lights import AREA, eval_light, sample_area_light, sample_light
+from ..ops.lights import AREA, ENV, eval_light, sample_area_light, sample_light
 from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
 from ..ops.raysort import ray_sort_key, sorted_apply, sorted_apply_tmax
 from ..ops.shade_tables import BRUTE_ROW_WORDS
-from ..ops.vecmath import dot, max_component, offset_ray_origin, sqr
+from ..ops.texture import (
+    MAX_ANISO,
+    cone_ellipse_uv,
+    pixel_cone_spread,
+    raycone_lod,
+    sample_ewa,
+    sample_trilinear,
+)
+from ..ops.vecmath import cross, dot, max_component, normalize, offset_ray_origin, sqr
 from ..scene.types import Scene, scene_to
 
 
@@ -71,7 +88,8 @@ class MegakernelConfig:
     # fewer recomputed traversals in the backward at k× the activation
     # memory
     tri_chunk: int = 32  # triangles per step of the plain sweep
-    env_nee: bool = False  # envmap NEE (slice 5); outside the fused set
+    env_nee: bool = False  # importance-sample the environment each bounce,
+    # MIS-weighted against the miss shader; outside the fused set
     backend: str = "auto"  # "auto" | "torch" | "cuda": intersection
     # kernels. auto = the CUDA kernels for CUDA tensors, the plain sweep
     # for CPU tensors; torch = the plain sweep everywhere (the kernels'
@@ -81,7 +99,10 @@ class MegakernelConfig:
     pixel_filter: str = "box"  # "box" | "mitchell": camera-sample filter.
     # mitchell = filter importance sampling through the tabulated
     # Mitchell-Netravali filter (radius 2), each sample weighted by sign(f)
-    light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5)
+    light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5b)
+    texture_filter: str = "trilinear"  # "trilinear" | "ewa": ewa adds
+    # bounded-tap anisotropic filtering along the ray-cone footprint's
+    # major axis (ops/texture.sample_ewa)
     fused: str = "auto"  # "auto" | "on" | "off": the fused CUDA path-loop
     # kernel; auto = on for CUDA scenes inside its feature set
     pixel_order: str = "auto"  # "auto" | "linear" | "morton": Morton pixel
@@ -98,9 +119,11 @@ def _validate(cfg: MegakernelConfig) -> None:
     if cfg.pixel_filter not in ("box", "mitchell"):
         raise ValueError(f"unknown pixel_filter {cfg.pixel_filter!r}")
     if cfg.light_strategy == "tree":
-        raise NotImplementedError("the light tree is not ported yet (slice 5)")
+        raise NotImplementedError("the light tree is not ported yet (slice 5b)")
     if cfg.light_strategy not in ("auto", "uniform"):
         raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}")
+    if cfg.texture_filter not in ("trilinear", "ewa"):
+        raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
     if cfg.backend not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.fused not in ("auto", "on", "off"):
@@ -232,9 +255,20 @@ class PathState(NamedTuple):
     eta_scale: torch.Tensor  # (N,) ∏ η² for roulette
     prev_pdf: torch.Tensor  # (N,) bsdf pdf of the last bounce (MIS)
     prev_delta: torch.Tensor  # (N,) last bounce was specular
+    cone_w: torch.Tensor | None = None  # (N,) ray-cone width at the origin
+    cone_s: torch.Tensor | None = None  # (N,) ray-cone spread angle (rad);
+    # both None in scenes without textures, whose shading needs no LOD
 
 
-def init_path_state(n: int, o, d) -> PathState:
+# spread of a path after its first non-specular bounce: a diffuse
+# reflection's footprint grows like a wide cone, pulling deeper bounces
+# toward the coarsest (and cheapest) mips
+DIFFUSE_CONE_SPREAD = 0.3
+
+
+def init_path_state(n: int, o, d, cone_spread=None) -> PathState:
+    """Fresh path state; ``cone_spread`` (the camera's pixel cone, for
+    textured scenes) starts the ray cones."""
     dev = o.device
     f = dict(dtype=torch.float32, device=dev)
     b = dict(dtype=torch.bool, device=dev)
@@ -248,11 +282,123 @@ def init_path_state(n: int, o, d) -> PathState:
         eta_scale=torch.ones((n,), **f),
         prev_pdf=torch.zeros((n,), **f),
         prev_delta=torch.ones((n,), **b),  # the camera counts as delta
+        cone_w=None if cone_spread is None else torch.zeros((n,), **f),
+        cone_s=None if cone_spread is None else cone_spread.expand(n).clone(),
     )
 
 
-def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None):
-    """Next-event estimation at the hit points → (N,3) contribution.
+class SurfaceUV(NamedTuple):
+    """UV parameterisation at the hits, shared by the texture fetches and
+    the normal map."""
+
+    uv: torch.Tensor  # (N,2)
+    dpdu: torch.Tensor  # (N,3) world-space UV tangents
+    dpdv: torch.Tensor  # (N,3)
+    ok: torch.Tensor  # (N,) non-degenerate UV triangle
+    dens: torch.Tensor  # (N,) the triangle's ‖duv/dp‖ (cone LOD)
+
+
+def _uv_at_hit(scene: Scene, hit) -> SurfaceUV:
+    """Interpolated UV and world-space UV tangents at the hits: with
+    p = v0 + u·e0 + v·e1 and uv = uv0 + u·duv1 + v·duv2,
+    dpdu = (dv2·e0 − dv1·e1)/det and dpdv = (du1·e1 − du2·e0)/det."""
+    uv3 = scene.tri_uv[hit.tri]
+    w = (1.0 - hit.u - hit.v)[..., None]
+    uv = w * uv3[:, 0] + hit.u[..., None] * uv3[:, 1] + hit.v[..., None] * uv3[:, 2]
+    duv1 = uv3[:, 1] - uv3[:, 0]
+    duv2 = uv3[:, 2] - uv3[:, 0]
+    e0 = scene.tri_e0[hit.tri]
+    e1 = scene.tri_e1[hit.tri]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok = torch.abs(det) > 1e-12
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    dpdu = (duv2[:, 1:2] * e0 - duv1[:, 1:2] * e1) * inv_det[:, None]
+    dpdv = (duv1[:, 0:1] * e1 - duv2[:, 0:1] * e0) * inv_det[:, None]
+    return SurfaceUV(uv, dpdu, dpdv, ok, scene.tri_uvdens[hit.tri])
+
+
+def _textured_mat(scene: Scene, cfg, mat, hit, suv: SurfaceUV, cone_w, wo):
+    """The gathered material with its albedo and roughness replaced by
+    texture fetches at the hits. Trilinear filtering covers the
+    footprint's major axis (the cone's surface ellipse stretches by 1/cosθ
+    at grazing incidence); ``cfg.texture_filter == "ewa"`` instead filters
+    each tap at the minor axis' LOD and spreads taps along the major."""
+    uv, dens = suv.uv, suv.dens
+    use_ewa = cfg.texture_filter == "ewa"
+    if use_ewa:
+        duv_major, _ = cone_ellipse_uv(cone_w, dens, wo, hit.normal, suv.dpdu, suv.dpdv)
+        cone_iso = cone_w
+    else:
+        cos_t = torch.abs(dot(wo, hit.normal))
+        cone_iso = cone_w / torch.clamp(cos_t, min=1.0 / MAX_ANISO)
+
+    def fetch(tid):
+        if use_ewa:
+            lod = raycone_lod(scene.textures, tid, cone_w, dens)
+            return sample_ewa(scene.textures, tid, uv, duv_major, lod)
+        return sample_trilinear(
+            scene.textures, tid, uv, raycone_lod(scene.textures, tid, cone_iso, dens)
+        )
+
+    has_alb = mat.albedo_tex >= 0
+    albedo = torch.where(
+        has_alb[..., None], fetch(torch.clamp(mat.albedo_tex, min=0)), mat.albedo
+    )
+    has_r = mat.rough_tex >= 0
+    rough = fetch(torch.clamp(mat.rough_tex, min=0))[:, 0]
+    alpha = sqr(rough)
+    return mat._replace(
+        albedo=albedo,
+        alphax=torch.where(has_r, alpha, mat.alphax),
+        alphay=torch.where(has_r, alpha, mat.alphay),
+        on_sigma=torch.where(has_r, rough * (torch.pi / 2.0), mat.on_sigma),
+    )
+
+
+def _normal_mapped(scene: Scene, mat, hit, suv: SurfaceUV, ns, cone_w):
+    """``ns`` perturbed by the material's tangent-space normal map, in the
+    frame of dpdu Gram-Schmidt'ed against ``ns`` with the bitangent's
+    handedness from dpdv, flipped into the incident hemisphere. Unchanged
+    where the material has no normal map or the UVs are degenerate."""
+    tid = torch.clamp(mat.normal_tex, min=0)
+    texel = sample_trilinear(
+        scene.textures, tid, suv.uv, raycone_lod(scene.textures, tid, cone_w, suv.dens)
+    )
+    n_t = 2.0 * texel - 1.0  # tangent space, z out of the surface
+    dpdu = suv.dpdu
+    tang = dpdu - ns * dot(ns, dpdu, keepdim=True)
+    tlen = torch.sqrt(torch.clamp(dot(tang, tang), min=1e-20))
+    tang = tang / tlen[:, None]
+    bita = cross(ns, tang)
+    handed = torch.where(dot(bita, suv.dpdv) < 0.0, -1.0, 1.0)
+    bita = bita * handed[:, None]
+    n_new = n_t[:, 0:1] * tang + n_t[:, 1:2] * bita + n_t[:, 2:3] * ns
+    bad = dot(n_new, n_new) < 1e-12
+    n_new = normalize(torch.where(bad[:, None], ns, n_new))
+    flip = dot(n_new, hit.normal, keepdim=True) < 0.0
+    n_new = torch.where(flip, -n_new, n_new)
+    use = (mat.normal_tex >= 0) & suv.ok & (tlen > 1e-10)
+    return torch.where(use[:, None], n_new, ns)
+
+
+def _shading_normal(scene: Scene, hit):
+    """Barycentric interpolation of the per-corner shading normals,
+    aligned with the incident-side geometric normal; the geometric normal
+    where the scene has none or the interpolation degenerates."""
+    if scene.tri_ns is None:
+        return hit.normal
+    n3 = scene.tri_ns[hit.tri]
+    w = (1.0 - hit.u - hit.v)[..., None]
+    ns = w * n3[:, 0] + hit.u[..., None] * n3[:, 1] + hit.v[..., None] * n3[:, 2]
+    bad = dot(ns, ns, keepdim=True) < 1e-12
+    ns = normalize(torch.where(bad, hit.normal, ns))
+    flip = dot(ns, hit.normal, keepdim=True) < 0.0
+    return torch.where(flip, -ns, ns)
+
+
+def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+    """Next-event estimation at the hit points → (N,3) contribution, the
+    BSDF evaluated about the shading normal ``ns`` (default: geometric).
     Shadow rays of dead paths, and of samples whose contribution is zero
     anyway, are marked dead for the BVH kernels (parked, sorted last)."""
     n_lights = scene.num_lights
@@ -262,7 +408,7 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     pmf = 1.0 / n_lights
 
     u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.LIGHT_U)
-    ls = sample_light(lt, hit.pos, u1, u2, hit.normal)
+    ls = sample_light(lt, hit.pos, u1, u2, hit.normal, types=scene.light_types)
     direction, distance, pdf = ls.direction, ls.distance, ls.pdf
     le = eval_light(lt, ls)
     is_area = None
@@ -279,7 +425,8 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
         le = torch.where(is_area[..., None], le_a, le)
 
     f_cos, bsdf_pdf = eval_bsdf(
-        mat, wo, direction, hit.normal, hit.normal, inside, ft=cfg.features
+        mat, wo, direction, hit.normal if ns is None else ns, hit.normal, inside,
+        ft=cfg.features,
     )
     shadow_live = (pdf > 0.0) & (max_component(f_cos) > 0.0)
     if alive is not None:
@@ -287,10 +434,18 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
     occluded = _any(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
 
-    # point/spot lights are not scene geometry: NEE is their only
-    # estimator, so no MIS weight and no division by the cone pdf (the
+    # point/spot/directional lights are not scene geometry: NEE is their
+    # only estimator, so no MIS weight and no division by the cone pdf (the
     # 1/d² falloff is already in le)
     contrib = le * f_cos / pmf
+    if ENV in scene.light_types:
+        # constant-environment rows are extended lights sampled by uniform
+        # sphere: divide by that pdf
+        contrib = torch.where(
+            (lt.ltype == ENV)[..., None],
+            le * f_cos / (pmf * torch.clamp(pdf, min=1e-12))[..., None],
+            contrib,
+        )
     if is_area is not None:
         # area lights are geometry: power-heuristic MIS against the BSDF
         # estimator on the full density pmf·pdf
@@ -302,20 +457,60 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     return torch.where(ok[..., None], contrib, 0.0)
 
 
+def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+    """Environment-map NEE at the hit points, power-heuristic MIS against
+    BSDF sampling → (N,3) contribution."""
+    u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.ENV_U)
+    d_env, le, pdf_env = sample_envmap(scene.env, u1, u2)
+    f_cos, bsdf_pdf = eval_bsdf(
+        mat, wo, d_env, hit.normal if ns is None else ns, hit.normal, inside,
+        ft=cfg.features,
+    )
+    shadow_live = (pdf_env > 0.0) & (max_component(f_cos) > 0.0)
+    if alive is not None:
+        shadow_live = shadow_live & alive
+    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, d_env)
+    occluded = _any(scene, cfg, shadow_o, d_env, 3.0e38, alive=shadow_live)
+    w = sqr(pdf_env) / torch.clamp(sqr(pdf_env) + sqr(bsdf_pdf), min=1e-24)
+    contrib = le * f_cos * (w / torch.clamp(pdf_env, min=1e-12))[..., None]
+    ok = (pdf_env > 0.0) & ~occluded
+    return torch.where(ok[..., None], contrib, 0.0)
+
+
 def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: PathState) -> PathState:
     """One path-tracing bounce over the full ray batch."""
     n = state.o.shape[0]
     depth_dim = depth * R.DIMS_PER_BOUNCE
     hit = _closest(scene, cfg, state.o, state.d, alive=state.alive)
 
-    # miss → constant environment, path dies
+    # miss → environment, path dies; when the environment is also
+    # NEE-sampled, MIS-weighted against the last bounce's bsdf pdf (delta
+    # prefixes keep full weight)
     miss = state.alive & ~hit.hit
-    le_env = eval_envmap(scene.env, state.d)
-    radiance = state.radiance + torch.where(miss[..., None], state.beta * le_env, 0.0)
+    if cfg.env_nee:
+        le_env, pdf_env_of_d = eval_envmap(scene.env, state.d)
+        w_env = torch.where(
+            state.prev_delta,
+            1.0,
+            sqr(state.prev_pdf)
+            / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_env_of_d), min=1e-24),
+        )
+        env_term = state.beta * le_env * w_env[..., None]
+    else:
+        env_term = state.beta * env_radiance(scene.env, state.d)
+    radiance = state.radiance + torch.where(miss[..., None], env_term, 0.0)
     alive = state.alive & hit.hit
 
     wo = -state.d
-    mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64))
+    textured = scene.textures is not None
+    mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64), textured=textured)
+    ns = _shading_normal(scene, hit)
+    if textured:
+        # the ray cone's width at the hit drives the mip selection
+        cone_at_hit = state.cone_w + state.cone_s * torch.abs(hit.t)
+        suv = _uv_at_hit(scene, hit)
+        mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
+        ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
     if scene.emissive is not None:
         # directly-hit emitter, MIS-weighted against the NEE estimator
         # (weight 1 after delta bounces and the camera)
@@ -336,15 +531,18 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         )
     nee = _nee(
         scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
-        alive=alive,
+        alive=alive, ns=ns,
     )
+    if cfg.env_nee:
+        nee = nee + _nee_env(
+            scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
+            alive=alive, ns=ns,
+        )
     radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
 
     u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
     uc = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.BSDF_UC)
-    bs = sample_bsdf(
-        mat, wo, hit.normal, hit.normal, u1, u2, uc, state.inside, ft=cfg.features
-    )
+    bs = sample_bsdf(mat, wo, ns, hit.normal, u1, u2, uc, state.inside, ft=cfg.features)
 
     valid = bs.pdf > 0.0
     beta = state.beta * torch.where(
@@ -369,6 +567,17 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
     beta = beta * survived[..., None]
     alive = alive & ~killed
 
+    cone_w = cone_s = None
+    if textured:
+        # ray cones: the width grows by spread·distance; the first
+        # non-specular bounce widens the spread to the diffuse cone
+        cone_w = torch.where(alive, cone_at_hit, state.cone_w)
+        cone_s = torch.where(
+            alive & ~bs.delta,
+            torch.clamp(state.cone_s, min=DIFFUSE_CONE_SPREAD),
+            state.cone_s,
+        )
+
     a3 = alive[..., None]
     return PathState(
         o=torch.where(a3, o_new, state.o),
@@ -380,6 +589,8 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         eta_scale=eta_scale,
         prev_pdf=torch.where(alive, bs.pdf, state.prev_pdf),
         prev_delta=torch.where(alive, bs.delta, state.prev_delta),
+        cone_w=cone_w,
+        cone_s=cone_s,
     )
 
 
@@ -393,15 +604,14 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
     dimensions.
     """
     _validate(cfg)
-    if cfg.env_nee:
-        raise NotImplementedError("envmap NEE is not ported yet (slice 5)")
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     px, py, o, d = (x.to(dev) for x in (px, py, o, d))
     if torch.is_tensor(sample):
         sample = sample.to(dev)
     sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
-    state = init_path_state(o.shape[0], o, d)
+    spread = None if scene.textures is None else pixel_cone_spread(scene.cam_from_raster)
+    state = init_path_state(o.shape[0], o, d, spread)
 
     def bounces(depths, state):
         for depth in depths:

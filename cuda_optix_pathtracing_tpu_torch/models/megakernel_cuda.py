@@ -23,9 +23,10 @@ permutation. Like the reference, ``render()`` never takes it.
 ``trace_paths_fused.launches`` and ``bounce_fused.launches`` count kernel
 launches and nothing else.
 
-Scope: Oren-Nayar, Lambert, GGX dielectric and conductor; point, spot and
-area lights with uniform selection; constant environment; the hash and
-the Owen-scrambled Halton samplers.
+Scope: Oren-Nayar, Lambert, GGX dielectric and conductor without
+textures; flat shading (no shading normals); point, spot and area lights
+with uniform selection; constant environment; the hash and the
+Owen-scrambled Halton samplers.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ from ..ops import rng as R
 from ..ops.bvh import stack_fits
 from ..ops.bvh_cuda import check_bvh_scene
 from ..ops.bsdf import GGX_CONDUCTOR, GGX_DIELECTRIC, LAMBERT, OREN_NAYAR
-from ..ops.lights import AREA, PORTED_LIGHT_TYPES
+from ..ops.lights import AREA, POINT, SPOT
 from ..ops.raysort import ray_sort_key32
 from ..ops.shade_tables import BRUTE_ROW_WORDS, EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
 
 MAX_SMEM_BYTES = 227 * 1024  # one block's dynamic shared memory on Hopper
+FUSED_LIGHT_TYPES = (POINT, SPOT, AREA)
 
 SAMPLERS = {"hash": 0, "halton": 1}  # the kernels' sampler codes
 
@@ -94,7 +96,11 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     refuses BVH scenes whose node meta table exceeds 255 KB, the TPU's SMEM
     budget for kernel inputs; here the node table is read from global
     memory, so only the traversal stacks bound the tree (its depth). Like
-    the reference, it refuses an environment whose texels differ."""
+    the reference, it refuses textures, shading normals and an environment
+    whose texels differ: the kernels shade with the table's constants and
+    the geometric normal."""
+    if scene.textures is not None or scene.tri_ns is not None:
+        return False
     if cfg.sampler not in SAMPLERS or cfg.env_nee:
         return False
     if cfg.light_strategy == "tree":
@@ -103,7 +109,7 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     if not mtypes <= {OREN_NAYAR, GGX_DIELECTRIC, GGX_CONDUCTOR, LAMBERT}:
         return False
     ltypes = set(scene.lights.ltype.cpu().tolist())
-    if not ltypes <= set(PORTED_LIGHT_TYPES):
+    if not ltypes <= set(FUSED_LIGHT_TYPES):
         return False
     if AREA in ltypes and scene.emissive is None:
         return False

@@ -1,14 +1,17 @@
-"""Host-side C++ BVH builder of the port (``native/src/bvh_build.cpp``),
-reached over ctypes.
+"""Host-side C++ of the port, reached over ctypes: the BVH builder
+(``native/src/bvh_build.cpp``) and the mesh attributes of scene files,
+smooth normals and affine transforms of triangle soups
+(``native/src/mesh.cpp``).
 
 The library is compiled with ``g++`` at first use into the package's
-``_build/`` directory, named by a hash of the source, the flags and the
+``_build/`` directory, named by a hash of the sources, the flags and the
 host CPU, so an edited source rebuilds and an unchanged one loads at once.
 The flags are the reference's (``-O3 -march=native``), so both packages
-build the same tree; ``-march=native`` ties the library to the CPU that
-built it, so a ``_build/`` copied to another host rebuilds there. There
-is no numpy fallback: a binned-SAH build in Python takes tens of seconds
-for a mesh scene, so a missing ``g++`` raises.
+build the same tree and the same world-space triangles; ``-march=native``
+ties the library to the CPU that built it, so a ``_build/`` copied to
+another host rebuilds there. There is no numpy fallback: a binned-SAH
+build in Python takes tens of seconds for a mesh scene, so a missing
+``g++`` raises.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "src" / "bvh_build.cpp"
+SRCS = tuple(Path(__file__).resolve().parent / "src" / n for n in ("bvh_build.cpp", "mesh.cpp"))
 BUILD = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -51,14 +54,14 @@ def cpu_fingerprint() -> str:
 
 
 def lib_path() -> Path:
-    h = hashlib.sha256(
-        " ".join(GXX_FLAGS).encode() + cpu_fingerprint().encode() + SRC.read_bytes()
-    )
-    return BUILD / f"bvh_build-{h.hexdigest()[:16]}.so"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + cpu_fingerprint().encode())
+    for src in SRCS:
+        h.update(src.read_bytes())
+    return BUILD / f"native-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the builder if its cached library is missing → its path."""
+    """Compile the library if its cached copy is missing → its path."""
     out = lib_path()
     with _lock:
         if out.exists():
@@ -66,18 +69,18 @@ def build() -> Path:
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError(
-                "g++ not found: the port's BVH builder (native/src/bvh_build.cpp) "
-                "is compiled at first use"
+                "g++ not found: the port's host library (native/src/*.cpp) is "
+                "compiled at first use"
             )
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         r = subprocess.run(
-            [gxx, *GXX_FLAGS, "-o", str(tmp), str(SRC)],
+            [gxx, *GXX_FLAGS, "-o", str(tmp), *map(str, SRCS)],
             capture_output=True, text=True, timeout=300,
         )
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed for {SRC.name}:\n{r.stderr[-4000:]}")
+            raise RuntimeError(f"g++ failed for native/src:\n{r.stderr[-4000:]}")
         os.replace(tmp, out)
     return out
 
@@ -96,6 +99,10 @@ def _lib() -> ctypes.CDLL:
     lib.dtpt_bvh_copy.argtypes = [ctypes.c_void_p, f32p, f32p, i32p, i32p, i32p, i32p]
     lib.dtpt_bvh_free.restype = None
     lib.dtpt_bvh_free.argtypes = [ctypes.c_void_p]
+    lib.dtpt_smooth_normals.restype = None
+    lib.dtpt_smooth_normals.argtypes = [f32p, ctypes.c_int64, ctypes.c_float, f32p]
+    lib.dtpt_transform_tris.restype = None
+    lib.dtpt_transform_tris.argtypes = [f32p, ctypes.c_int64, f32p, f32p]
     return lib
 
 
@@ -124,3 +131,24 @@ def bvh_build_native(v0, e0, e1, leaf_size: int, n_bins: int):
     finally:
         lib.dtpt_bvh_free(h)
     return child_lo, child_hi, child_node, leaf_start, leaf_count, tri_order
+
+
+def smooth_normals(tris, crease_deg: float = 66.0) -> np.ndarray:
+    """Per-corner smooth shading normals of a (T,3,3) triangle soup: weld
+    identical positions, average area-weighted face normals per vertex,
+    per corner only over faces within the crease angle of its own."""
+    tris = np.ascontiguousarray(tris, np.float32)
+    out = np.empty_like(tris)
+    if tris.shape[0]:
+        _lib().dtpt_smooth_normals(tris, tris.shape[0], float(crease_deg), out)
+    return out
+
+
+def transform_tris(tris, m) -> np.ndarray:
+    """A (T,3,3) triangle soup under a (4,4) affine matrix, in float32."""
+    tris = np.ascontiguousarray(tris, np.float32)
+    m = np.ascontiguousarray(m, np.float32)
+    out = np.empty_like(tris)
+    if tris.shape[0]:
+        _lib().dtpt_transform_tris(tris, tris.shape[0], m, out)
+    return out

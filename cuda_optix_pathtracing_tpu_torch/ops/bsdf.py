@@ -10,8 +10,9 @@ compressed into polynomials; ``ggx_energy_tables`` and ``_e_poly_coeffs``
 are the reference's deterministic numpy, copied verbatim, so the
 coefficients are equal. Type codes match the reference enum.
 
-Textured materials are not ported yet (slice 5): the table has no
-texture-id columns and scene builders refuse textures.
+Texture ids (albedo, roughness, normal map; −1 for none) index the
+scene's texture pool; the integrator replaces the gathered constants by
+texture fetches at the hit (``models/megakernel._textured_mat``).
 """
 
 from __future__ import annotations
@@ -85,9 +86,16 @@ class MaterialTable(NamedTuple):
     cond_eta: torch.Tensor  # (M,3)
     cond_k: torch.Tensor  # (M,3)
     emission: torch.Tensor  # (M,3) emitted radiance (area lights)
+    albedo_tex: torch.Tensor  # (M,) int32 texture id of the albedo, -1 none
+    rough_tex: torch.Tensor  # (M,) int32 roughness texture id, -1 none
+    normal_tex: torch.Tensor  # (M,) int32 normal-map texture id, -1 none
 
-    def gather(self, idx) -> "MaterialTable":
-        return MaterialTable(*(f[idx] for f in self))
+    def gather(self, idx, textured: bool = True) -> "MaterialTable":
+        """Rows ``idx`` of every column; without ``textured`` the texture
+        ids are left out (None): a scene without textures reads none."""
+        if textured:
+            return MaterialTable(*(f[idx] for f in self))
+        return MaterialTable(*(f[idx] for f in self[:-3]), None, None, None)
 
 
 def mat_features_from_table(t: MaterialTable) -> MatFeatures:
@@ -186,11 +194,6 @@ def make_material_table(materials: Sequence[dict], device=None) -> MaterialTable
     for m in materials:
         d = dict(_DEFAULTS)
         d.update(m)
-        if max(d["albedo_tex"], d["rough_tex"], d["normal_tex"]) >= 0:
-            raise NotImplementedError(
-                "textured materials are not ported yet (slice 5: scene "
-                "breadth)"
-            )
         rows.append(d)
 
     def col(name, width):
@@ -217,6 +220,10 @@ def make_material_table(materials: Sequence[dict], device=None) -> MaterialTable
         cond_eta=col("cond_eta", 3),
         cond_k=col("cond_k", 3),
         emission=col("emission", 3),
+        **{
+            name: torch.as_tensor(np.asarray([r[name] for r in rows], np.int32), device=device)
+            for name in ("albedo_tex", "rough_tex", "normal_tex")
+        },
     )
 
 

@@ -1,10 +1,13 @@
-"""Light library: point (sphere nucleus), spot and area lights
-(counterpart of the reference ``ops/lights.py``).
+"""Light library: point (sphere nucleus), spot, constant environment,
+directional and area lights (counterpart of the reference
+``ops/lights.py``).
 
-Each ray carries its gathered light row and all ported types are
-evaluated as masked dense code. Spot attenuation uses a correct
-smoothstep. Directional and environment rows and the light tree are not
-ported yet (slice 5); scene builders refuse them.
+Each ray carries its gathered light row and the light types are
+evaluated as masked dense code; a caller that knows which types its table
+holds passes them (``types``), and the branches of absent types are not
+run. Spot attenuation uses a correct smoothstep; a constant-environment
+row's pdf is the uniform sphere's 1/(4π). The light tree is not ported
+yet (slice 5b).
 """
 
 from __future__ import annotations
@@ -14,8 +17,14 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .sampling import ray_sphere_intersect, sample_cos_hemisphere, sample_uniform_cone
+from .sampling import (
+    ray_sphere_intersect,
+    sample_cos_hemisphere,
+    sample_uniform_cone,
+    sample_uniform_sphere,
+)
 from .vecmath import (
+    INV_PI,
     cross,
     dot,
     length,
@@ -32,7 +41,7 @@ ENV = 2
 DIRECTIONAL = 3
 AREA = 4  # one row standing for the whole emissive-triangle set
 
-PORTED_LIGHT_TYPES = (POINT, SPOT, AREA)
+ALL_LIGHT_TYPES = (POINT, SPOT, ENV, DIRECTIONAL, AREA)
 
 BIG_DIST = 3.0e38
 
@@ -43,11 +52,11 @@ class LightTable(NamedTuple):
     ltype: torch.Tensor  # (L,) int32
     color: torch.Tensor  # (L,3) intensity
     pos: torch.Tensor  # (L,3)
-    direction: torch.Tensor  # (L,3) unit (spot)
+    direction: torch.Tensor  # (L,3) unit (spot/directional)
     cos_theta0: torch.Tensor  # (L,) spot max-intensity cosine
     cos_theta_e: torch.Tensor  # (L,) spot penumbra cosine
     radius: torch.Tensor  # (L,) nucleus radius
-    one_minus_cos: torch.Tensor  # (L,) directional spread (unused here)
+    one_minus_cos: torch.Tensor  # (L,) directional spread
 
     def gather(self, idx) -> "LightTable":
         return LightTable(*(f[idx] for f in self))
@@ -68,6 +77,20 @@ def spot_light(color, position, direction, cos_theta0, cos_theta_e, radius) -> d
         cos_theta_e=float(cos_theta_e),
         radius=float(radius),
     )
+
+
+def directional_light(color, direction, one_minus_cos: float = 0.0) -> dict:
+    d = np.asarray(direction, np.float64)
+    return dict(
+        ltype=DIRECTIONAL,
+        color=color,
+        direction=(d / np.linalg.norm(d)).astype(np.float32),
+        one_minus_cos=float(one_minus_cos),
+    )
+
+
+def environment_light(color) -> dict:
+    return dict(ltype=ENV, color=color)
 
 
 def area_light() -> dict:
@@ -149,11 +172,6 @@ def make_light_table(lights: Sequence[dict], device=None) -> LightTable:
     for li in lights:
         d = dict(_DEFAULTS)
         d.update(li)
-        if d["ltype"] not in PORTED_LIGHT_TYPES:
-            raise NotImplementedError(
-                "directional and environment light rows are not ported yet "
-                "(slice 5: scene breadth)"
-            )
         rows.append(d)
 
     def col(name, width):
@@ -188,14 +206,17 @@ class LightSample(NamedTuple):
     factor: torch.Tensor  # (N,) angular attenuation (spot)
 
 
-def sample_light(lt: LightTable, position, u1, u2, normal) -> LightSample:
-    """Sample the gathered point/spot rows ``lt`` from ``position`` (N,3).
+def sample_light(lt: LightTable, position, u1, u2, normal, types=ALL_LIGHT_TYPES) -> LightSample:
+    """Sample the gathered rows ``lt`` from ``position`` (N,3).
 
-    Nucleus sampling: a cone toward the sphere from outside, a cosine
-    hemisphere around ``normal`` from inside (no transmission history is
-    carried into NEE, as in the reference integrator). Spots sample their
-    spread cone instead when it is tighter, attenuate by a smoothstep and
-    re-project the sample onto the sphere.
+    Point/spot nucleus sampling: a cone toward the sphere from outside, a
+    cosine hemisphere around ``normal`` from inside (no transmission
+    history is carried into NEE, as in the reference integrator). Spots
+    sample their spread cone instead when it is tighter, attenuate by a
+    smoothstep and re-project the sample onto the sphere. A constant
+    environment row samples the uniform sphere; a directional row the cone
+    of its spread around −direction (delta). ``types``: the light types
+    the rows may hold; the others' branches are skipped.
     """
     n = position.shape[0]
     lpos, radius = lt.pos, lt.radius
@@ -264,6 +285,26 @@ def sample_light(lt: LightTable, position, u1, u2, normal) -> LightSample:
     )
     distance = torch.where(proj_ok, new_dist, distance)
     p_light = torch.where(proj_ok[..., None], p_proj, p_light)
+
+    if ENV in types:  # uniform sphere
+        is_env = lt.ltype == ENV
+        d_env = sample_uniform_sphere(u1, u2)
+        d = torch.where(is_env[..., None], d_env, d)
+        pdf = torch.where(is_env, 0.25 * INV_PI, pdf)
+        delta = torch.where(is_env, False, delta)
+        distance = torch.where(is_env, BIG_DIST, distance)
+        p_light = torch.where(is_env[..., None], d_env, p_light)
+        factor = torch.where(is_env, 1.0, factor)
+
+    if DIRECTIONAL in types:  # cone of spread around −direction
+        is_dir = lt.ltype == DIRECTIONAL
+        d_dir, _, pdf_dir, _ = sample_uniform_cone(lt.direction, lt.one_minus_cos, u1, u2)
+        d = torch.where(is_dir[..., None], -d_dir, d)
+        pdf = torch.where(is_dir, pdf_dir, pdf)
+        delta = torch.where(is_dir, True, delta)
+        distance = torch.where(is_dir, BIG_DIST, distance)
+        p_light = torch.where(is_dir[..., None], d_dir, p_light)
+        factor = torch.where(is_dir, 1.0, factor)
     return LightSample(p_light, d, pdf, delta, distance, factor)
 
 
@@ -274,3 +315,10 @@ def eval_light(lt: LightTable, ls: LightSample):
     finite = (lt.ltype == POINT) | (lt.ltype == SPOT)
     atten = 1.0 / torch.clamp(sqr(ls.distance), min=1e-12)
     return torch.where(finite[..., None], le * atten[..., None], le)
+
+
+def eval_infinite_light(color, direction):
+    """Constant environment emission and its uniform-sphere pdf."""
+    n = direction.shape[0]
+    pdf = torch.full((n,), 0.25 * INV_PI, dtype=torch.float32, device=direction.device)
+    return color.expand(n, 3), pdf

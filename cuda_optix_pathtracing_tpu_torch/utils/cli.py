@@ -4,9 +4,12 @@ write the mean and sqrt-MSE PNGs.
 
 Run as: ``python -m cuda_optix_pathtracing_tpu_torch.utils.cli --scene cornell``
 (``--device cuda`` is the default; ``--device cpu`` runs the plain path).
-Scenes: ``cornell`` (26 triangles) and ``cornell-mesh`` (the same box with
-finely tessellated spheres, subdivision 48: 9,034 triangles and a BVH).
-JSON/PBRT scene files raise (slice 5).
+Scenes: ``cornell`` (26 triangles), ``cornell-mesh`` (the same box with
+finely tessellated spheres, subdivision 48: 9,034 triangles and a BVH), or
+a scene file: ``.pbrt`` (``scene/pbrt.py``) or JSON (``scene/parser.py``),
+e.g. ``--scene scenes/scene_test.json``. A file sets the film size; its
+sample count replaces the default ``--spp``, and a JSON file's
+``max-depth`` replaces ``--max-depth``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import time
 
 
 def main(argv=None) -> int:
-    from .config import parse_args
+    from .config import DEFAULT_SPP, parse_args
 
     cfg = parse_args(argv)
 
@@ -41,11 +44,22 @@ def main(argv=None) -> int:
         scene = cornell_box(cfg.width, cfg.height, device=device)
     elif cfg.scene == "cornell-mesh":
         scene = cornell_box_mesh(cfg.width, cfg.height, device=device)
+    elif cfg.scene.endswith(".pbrt"):
+        from ..scene.pbrt import load_pbrt
+
+        scene, meta = load_pbrt(cfg.scene, device=device)
+        cfg.width, cfg.height = meta.width, meta.height
+        if meta.spp and cfg.spp == DEFAULT_SPP:
+            cfg.spp = meta.spp
     else:
-        raise NotImplementedError(
-            f"scene {cfg.scene!r} is not ported yet: JSON/PBRT scenes come "
-            "with slice 5"
-        )
+        from ..scene.parser import load_scene
+
+        scene, parsed = load_scene(cfg.scene, device=device)
+        cfg.width, cfg.height = parsed.width, parsed.height
+        if parsed.spp and cfg.spp == DEFAULT_SPP:
+            cfg.spp = parsed.spp
+        if parsed.max_depth:
+            cfg.max_depth = parsed.max_depth
     log.info(
         "scene=%s %dx%d spp=%d depth=%d sampler=%s device=%s",
         cfg.scene, cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.sampler,

@@ -8,13 +8,16 @@ import argparse
 from dataclasses import dataclass
 
 
+DEFAULT_SPP = 128  # a scene file's sample count replaces this default
+
+
 @dataclass
 class RunConfig:
-    scene: str = "cornell"  # "cornell" | "cornell-mesh"
+    scene: str = "cornell"  # "cornell" | "cornell-mesh" | a .json/.pbrt path
     out: str = "out/render.png"
     width: int = 256
     height: int = 256
-    spp: int = 128
+    spp: int = DEFAULT_SPP
     kspp: int = 8  # samples per progressive batch
     max_depth: int = 5
     sampler: str = "hash"  # "hash" | "halton" (Owen-scrambled Halton)
@@ -28,10 +31,11 @@ class RunConfig:
 def parse_args(argv=None) -> RunConfig:
     p = argparse.ArgumentParser(
         prog="dtpt-render-torch",
-        description="Path tracer, PyTorch + CUDA port (Cornell boxes)",
+        description="Path tracer, PyTorch + CUDA port",
     )
     d = RunConfig()
-    p.add_argument("--scene", default=d.scene, help="'cornell' or 'cornell-mesh'")
+    p.add_argument("--scene", default=d.scene,
+                   help="'cornell', 'cornell-mesh' or a .json/.pbrt scene file")
     p.add_argument("--out", default=d.out, help="output PNG path")
     p.add_argument("--width", type=int, default=d.width)
     p.add_argument("--height", type=int, default=d.height)

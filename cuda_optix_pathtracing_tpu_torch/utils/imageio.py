@@ -136,3 +136,9 @@ def read_png(path: str) -> np.ndarray:
     if color_type == 3:
         img = palette[img[..., 0]]
     return img
+
+
+def srgb_to_linear(img_uint: np.ndarray) -> np.ndarray:
+    """Integer sRGB-encoded image → linear-light float32 in [0, 1]."""
+    x = img_uint.astype(np.float32) / float(np.iinfo(img_uint.dtype).max)
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)

@@ -83,8 +83,8 @@ def test_scene_from_arrays_refuses_later_slices(ref_scene):
     fields = flatten_scene(ref_scene)
     with pytest.raises(NotImplementedError, match="slice 5"):
         scene_from_arrays({**fields, "light_tree.nodes": np.zeros(1)}, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        scene_from_arrays({**fields, "tri_ns": np.zeros((26, 3, 3))}, "cpu")
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        scene_from_arrays({**fields, "instances.tstart": np.zeros(2, np.int32)}, "cpu")
 
 
 def test_e_poly_coeffs_equal():

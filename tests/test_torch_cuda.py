@@ -522,6 +522,113 @@ def test_sorted_route_refuses_brute_force_scene(dev, scene):
         MKC.bounce_fused(scene, MKC.pack_path_state(px, py, sample, o, d), 0)
 
 
+def test_bvh_wrappers_refuse_trees_the_kernels_cannot_walk(dev, mesh):
+    """A tree deeper than the compact stack allows (depth 10) or of 2^24
+    nodes is refused by every BVH wrapper before a launch, and the fused
+    gate keeps such a scene off the fused kernel."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops.bvh import stack_fits
+
+    o, d, t_max = _rays(dev, n=256)
+    px, py, sample, co, cd = _camera_rays(dev, mesh, 1)
+    assert stack_fits(9) and not stack_fits(10)
+    deep = mesh._replace(bvh=mesh.bvh._replace(depth=10))
+    huge = mesh._replace(bvh=mesh.bvh._replace(nodes=mesh.bvh.nodes[:1].expand(1 << 24, -1)))
+    counters = (BV.bvh_closest_raw, BV.bvh_any_raw, MKC.trace_paths_fused, MKC.bounce_fused)
+    before = [c.launches for c in counters]
+    for bad, match in ((deep, "depth 10"), (huge, "2\\^24")):
+        with pytest.raises(ValueError, match=match):
+            BV.bvh_closest_raw(o, d, bad)
+        with pytest.raises(ValueError, match=match):
+            BV.bvh_any_raw(o, d, bad, t_max)
+        with pytest.raises(ValueError, match=match):
+            MKC.trace_paths_fused(bad, px, py, sample, co, cd, max_depth=2)
+        with pytest.raises(ValueError, match=match):
+            MKC.bounce_fused(bad, MKC.pack_path_state(px, py, sample, co, cd), 0)
+    assert not MKC.megakernel_cuda_supported(deep, MegakernelConfig())
+    assert [c.launches for c in counters] == before
+
+
+def test_kernel_entry_points_return_launch_errors(dev, mesh, monkeypatch):
+    """The C entry points of bvh.cu and megakernel.cu return a nonzero CUDA
+    error for a launch that cannot start (a grid of 0 blocks; a sampler
+    code that names no instantiation; more shared memory than a block can
+    have), and the wrappers raise on a nonzero return."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+
+    stream = torch.cuda.current_stream().cuda_stream
+    blib = BV._lib()
+    assert blib.bvh_closest(None, None, None, None, -1, None, None, stream) != 0
+    assert blib.bvh_anyhit(None, None, None, None, None, -1, None, stream) != 0
+    mlib = MKC._lib()
+    z = [None] * 6
+    assert mlib.pt_fused_bruteforce(*z, 0, 1, 1, 0, 1, 0, 0, 7, 0, 0, None, None) != 0
+    assert mlib.pt_fused_bruteforce(*z, 0, 1 << 20, 1, 0, 0, 0, 0, 0, 0, 0, None, None) != 0
+    assert mlib.pt_fused_bvh(*z, None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
+                             None, None, None) != 0
+    assert mlib.pt_bounce_bvh(*z[:5], None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
+                              None, None) != 0
+    torch.cuda.synchronize()  # the errors were launch errors: the card is fine
+    o, d, t_max = _rays(dev, n=64)
+    assert bool(torch.isfinite(BV.bvh_closest_raw(o, d, mesh)[0]).all())
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *args: 700
+
+    for mod in (BV, MKC):
+        monkeypatch.setattr(mod, "_lib", lambda: Failing())
+    px, py, sample, co, cd = _camera_rays(dev, mesh, 1)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        BV.bvh_closest_raw(o, d, mesh)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        BV.bvh_any_raw(o, d, mesh, t_max)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        MKC.trace_paths_fused(mesh, px, py, sample, co, cd, max_depth=2)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        MKC.bounce_fused(mesh, MKC.pack_path_state(px, py, sample, co, cd), 0)
+
+
+def test_textured_bvh_scene_kernel_route_matches_plain(dev):
+    """scene_test.json (the textured teapot: 9,216 triangles and a BVH,
+    shading normals, a normal map) at 32², 1 spp, depth 4: the kernel
+    route (kernel 4, sorted) against backend='torch' at the parity bar;
+    the fused kernels never run."""
+    import dataclasses
+    import os
+
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import (
+        MegakernelConfig,
+        render_sample_batch,
+        resolve_fused,
+    )
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.scene.parser import parse_scene
+    from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host
+
+    path = os.path.join(os.path.dirname(__file__), "..", "scenes", "scene_test.json")
+    hs, _ = parse_scene(path)
+    hs.camera = dataclasses.replace(hs.camera, width=32, height=32)
+    scene = scene_from_host(hs, device=dev)
+    assert scene.bvh is not None and scene.textures is not None
+    cfg = MegakernelConfig(max_depth=4)
+    assert resolve_fused(scene, cfg).fused == "off"
+    before = BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches, MKC.trace_paths_fused.launches
+    img_k = render_sample_batch(scene, cfg, 32, 32, 0)
+    torch.cuda.synchronize()
+    after = BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches, MKC.trace_paths_fused.launches
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (4, 4, 0)
+    img_p = render_sample_batch(scene, dataclasses.replace(cfg, backend="torch"), 32, 32, 0)
+    diff = (img_k - img_p).abs()
+    assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.0
+    assert float(diff.mean()) < 1e-4
+    assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
 # ---- gradients (models/differentiable.py) --------------------------------------
 
 
