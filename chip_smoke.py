@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Two procedural scenes, each down every route of the port, then the
-bundled scene files (phase 6):
+bundled scene files (phase 6), then instanced and many-lights scenes
+(phase 7):
 
 - the Cornell box (26 triangles, brute force): the fused kernel
   ``pt_fused_bruteforce`` and, with ``fused="off"``, the closest-hit and
@@ -95,6 +96,21 @@ Phases (each fails loudly; there is no CPU fallback):
    trace of ``fbx_example.json`` (shading normals) or ``scene_test.json``;
    the CLI on ``scene_test.json`` at its authored settings, writing its
    PNGs to ``chiprun_out/``;
+7. the light tree and instancing (``fused="off"``: the fused gate refuses
+   both), each render at 256², depth 5, 16 spp as one 1,048,576-path pass
+   with the counts zeroed just before and read just after, and one traced
+   pass (device-busy share, host launches, no ``pt_fused_*`` or
+   ``pt_bounce_*`` kernel): (B) ``cornell_box_mesh_instanced`` (walls as
+   an identity instance, two 8,192-triangle sphere meshes, one instance
+   each) through kernel 4 once per instance and query, against the baked
+   ``cornell_box_mesh`` at the reference's bar, kernel 4 at the pass's
+   recorded launches on each instance's mesh against the plain sweep
+   (every 4th ray), the rays each instance's box culls; (A)
+   ``cornell_box_many_lights`` (an 8×8 grid of emissive ceiling quads:
+   129 light records, a tree built on the host) with ``nee_splits`` 1 and
+   4 through kernel 4, against uniform selection within 5 sigma, the
+   tree's MSE below 0.6× uniform's against a converged tree image, and
+   the kernel route bit-equal to ``backend="torch"`` at 2 spp;
 then one JSON line with every kernel, and as the last line
 ``{"ok": true, "device": ...}``.
 
@@ -185,6 +201,14 @@ SCENE_K4_STRIDE = 4  # kernel 4's recorded launches: every 4th ray held to
 # the plain sweep (each ray's result depends on that ray alone)
 SCENE_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
                          "scene_test.png")
+# phase 7, the light tree and instancing: scenes at 256², depth 5,
+# MESH_SPP samples in one pass; the many-lights box's converged tree image
+# for the MSE check, and the spp at which the kernel and plain routes are
+# held bit for bit
+TREE_REF_SPP = 128
+TREE_BIT_SPP = 2
+PLAIN_CHUNK = 256  # triangles per step of phase 7's plain sweeps (their
+# results do not depend on it: the first of equal t wins either way)
 # an empty kernel, built beside the port's kernels: the card's per-launch
 # floor, timed beside the bounds
 FLOOR_CU = r"""
@@ -570,23 +594,27 @@ def depth0_rays(MK, scene, cfg, px, py, sample, o, d):
 def record_bvh_launches(MK, fn):
     """Run ``fn`` with the integrator's view of the BVH kernels' module
     (``MK.bvh_cuda``) shimmed to keep a copy of every launch's rays →
-    {"closest": [(o, d)], "any": [(o, d, t_max)]}. The wrappers themselves
-    stay in place, so their launch counts stay true."""
+    {"closest": [(o, d)], "any": [(o, d, t_max)]}, and under
+    "closest_tables" and "any_tables" the tables each launch walked (the
+    scene's, or an instance mesh's). The wrappers themselves stay in place,
+    so their launch counts stay true."""
     import types
 
     import torch
 
-    rec = {"closest": [], "any": []}
+    rec = {"closest": [], "any": [], "closest_tables": [], "any_tables": []}
     BV = MK.bvh_cuda
 
     def rec_closest(o, d, scene):
         rec["closest"].append((o.clone(), d.clone()))
+        rec["closest_tables"].append(scene)
         return BV.bvh_closest_raw(o, d, scene)
 
     def rec_any(o, d, scene, t_max):
         t = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
                                (o.shape[0],))
         rec["any"].append((o.clone(), d.clone(), t.clone()))
+        rec["any_tables"].append(scene)
         return BV.bvh_any_raw(o, d, scene, t_max)
 
     MK.bvh_cuda = types.SimpleNamespace(bvh_closest_raw=rec_closest, bvh_any_raw=rec_any)
@@ -680,10 +708,12 @@ def check_closest(label, tk, ik, tp, ip) -> float:
     tie = rel <= 1e-6
     check(bool(((ik == ip) | tie).all()),
           f"{label}: rows equal wherever the two t differ by > 1e-6 rel")
-    check(bool(((tk < BIG_T) == (tp < BIG_T)).all()) and float(rel[both].max()) <= 1e-5,
+    max_rel = float(rel[both].max()) if bool(both.any()) else 0.0
+    max_abs = float(dt[both].max()) if bool(both.any()) else 0.0
+    check(bool(((tk < BIG_T) == (tp < BIG_T)).all()) and max_rel <= 1e-5,
           f"{label}: same hits ({int(both.sum())} of {tk.shape[0]}), t within 1e-5 relative "
-          f"(max rel {float(rel[both].max()):.2e}, max abs {float(dt[both].max()):.2e})")
-    return float(dt[both].max())
+          f"(max rel {max_rel:.2e}, max abs {max_abs:.2e})")
+    return max_abs
 
 
 def check_parity(label, rad_k, rad_p, spp: int, ref: str = "trace_paths") -> float:
@@ -1150,6 +1180,192 @@ def scene_files_phase(MK, zero, read, tag: str, kernel_names: dict) -> None:
           f"(6) the CLI rendered scene_test.json ({sw}x{sh}, {spp} spp, depth {depth}) through "
           f"kernel 4 in {dt_cli:.2f} s and wrote {SCENE_OUT} and its sqrt-MSE PNG")
     print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s {tag}")
+
+
+def lights_instancing_phase(MK, zero, read, tag: str, kernel_names: dict) -> None:
+    """Phase 7: the light tree and instancing on the card, no CPU
+    fallback. (B) the instanced mesh Cornell box beside the baked one;
+    (A) the many-lights Cornell box, tree against uniform selection."""
+    import dataclasses
+
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops.bsdf import mat_features_from_table
+    from cuda_optix_pathtracing_tpu_torch.ops.intersect import intersect_any, intersect_closest_raw
+    from cuda_optix_pathtracing_tpu_torch.scene import (
+        cornell_box_mesh,
+        cornell_box_mesh_instanced,
+    )
+    from cuda_optix_pathtracing_tpu_torch.scene.procedural import cornell_box_many_lights
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    print(f"phase 7: the light tree and instancing {tag}")
+    n_pass = W * H * MESH_SPP
+
+    def cfg_for(scene, **kw):
+        return MK.MegakernelConfig(max_depth=DEPTH, features=mat_features_from_table(scene.materials),
+                                   **kw)
+
+    def timed_pass(scene, cfg, label, counted, trace=True):
+        """Warm-up spp, then render(MESH_SPP samples in one pass) with the
+        counts zeroed just before and read just after, then (``trace``)
+        one traced pass → (film, launches, seconds)."""
+        check(MK.resolve_fused(scene, cfg).fused == "off",
+              f"({label}) resolves to the plain integrator (the fused gate refuses it)")
+        MK.render_sample_batch(scene, cfg, W, H, 0)
+        zero()
+        t0 = time.perf_counter()
+        film = MK.render(scene, W, H, spp=MESH_SPP, cfg=cfg, kspp=MESH_SPP, spp_per_pass=MESH_SPP)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read()
+        check(bool(torch.isfinite(film.mean).all()) and float(film.mean.mean()) > 0.0
+              and all(got[c] > 0 for c in counted) and got["trace_paths_fused"] == 0
+              and got["bounce_fused"] == 0,
+              f"({label}) render {W}x{H}x{MESH_SPP} (one pass) depth {DEPTH}: finite film, mean "
+              f"{float(film.mean.mean()):.5f}; launches per spp: kernel 2 "
+              f"{got['closest_bruteforce'] / MESH_SPP:g}, kernel 3 "
+              f"{got['anyhit_bruteforce'] / MESH_SPP:g}, kernel 4 "
+              f"{got['bvh_closest_raw'] / MESH_SPP:g} + {got['bvh_any_raw'] / MESH_SPP:g}; "
+              f"no fused kernel")
+        print(f"  ({label}) {dt:.3f} s, {n_pass / dt / 1e6:.4f} Mpaths/s (host clock around "
+              f"render()) {tag}")
+        if not trace:
+            return film, got, dt
+        # device activity only, all the device-busy share needs: tracing the
+        # host's ops as well costs far longer on these 15,000-54,000-launch passes
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            MK.render_sample_batch(scene, cfg, W, H, 0, nspp=MESH_SPP)
+            torch.cuda.synchronize()
+        rows = device_rows(prof.key_averages())
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        fused = [e.key for e in rows if "pt_fused" in e.key or "pt_bounce" in e.key]
+        check(busy > 0.0 and not fused,
+              f"({label}) the profiler saw device work in a traced pass, no pt_fused_* or "
+              f"pt_bounce_* kernel")
+        per_k = {k: [e for e in rows if is_kernel(e.key, kernel_names[k])]
+                 for k in ("bvh_closest", "bvh_anyhit", "closest", "anyhit")}
+        ks = ", ".join(f"{k} {sum(e.count for e in es)} launches "
+                       f"{sum(e.self_device_time_total for e in es) / 1e3:.3f} ms"
+                       for k, es in per_k.items())
+        print(f"  ({label}) traced pass: device busy {1e3 * busy:.3f} ms ({100 * busy / dt:.1f} % "
+              f"of the untraced wall), {sum(e.count for e in rows)} device kernels per pass; "
+              f"{ks} {tag}")
+        return film, got, dt
+
+    # (B) instancing: the instanced mesh Cornell box and the baked one
+    t0 = time.perf_counter()
+    inst = cornell_box_mesh_instanced(W, H, subdiv=MESH_SUBDIV, use_bvh=True, device="cuda")
+    torch.cuda.synchronize()
+    ti = inst.instances
+    starts = ti.tstart.tolist()
+    check(ti.count == 3 and all(m.bvh is not None for m in ti.meshes)
+          and len({id(m) for m in ti.meshes}) == 3,
+          f"(B) instanced scene: {ti.count} instances (walls, two sphere meshes), "
+          f"{inst.num_triangles} rows in all, row offsets {starts}, BVH depths "
+          f"{[m.bvh.depth for m in ti.meshes]}; built in {time.perf_counter() - t0:.2f} s")
+    cfg_i = cfg_for(inst)
+    film_i, got_i, dt_i = timed_pass(inst, cfg_i, "B, instanced", ("bvh_closest_raw", "bvh_any_raw"))
+    check(got_i["bvh_closest_raw"] == ti.count * DEPTH and got_i["bvh_any_raw"] == ti.count * DEPTH
+          and got_i["closest_bruteforce"] == 0 and got_i["anyhit_bruteforce"] == 0,
+          f"(B) kernel 4 once per instance and query: {got_i['bvh_closest_raw']} closest-hit and "
+          f"{got_i['bvh_any_raw']} any-hit launches per pass of {MESH_SPP} spp (3 instances × "
+          f"depth {DEPTH} each)")
+    baked = cornell_box_mesh(W, H, subdiv=MESH_SUBDIV, device="cuda")
+    film_b, got_b, dt_b = timed_pass(baked, cfg_for(baked, fused="off"), "B, baked, fused='off'",
+                                     ("bvh_closest_raw", "bvh_any_raw"))
+    diff = (film_i.mean - film_b.mean).abs()
+    frac = float((diff.max(-1).values > 1e-2).float().mean())
+    check(float(diff.mean()) < 1e-4 and frac < 0.01,
+          f"(B) instanced against baked: mean abs diff {float(diff.mean()):.3e} < 1e-4, "
+          f"{frac:.5f} of pixels off by > 1e-2 (< 0.01)")
+    print(f"  (B) instanced {n_pass / dt_i / 1e6:.4f} against baked {n_pass / dt_b / 1e6:.4f} "
+          f"Mpaths/s in this call {tag}")
+
+    # the recorded kernel-4 launches of one pass, every SCENE_K4_STRIDE-th
+    # ray held to the plain sweep over the same instance mesh
+    rec = record_bvh_launches(
+        MK, lambda: MK.render_sample_batch(inst, cfg_i, W, H, 0, nspp=MESH_SPP))
+    sub = slice(None, None, SCENE_K4_STRIDE)
+    k4_err, n_rays, n_diff = 0.0, 0, 0
+    parked = [[] for _ in range(ti.count)]
+    for i, ((o, d), mesh) in enumerate(zip(rec["closest"], rec["closest_tables"])):
+        tk, ik = BV.bvh_closest_raw(o, d, mesh)
+        tp, ip = intersect_closest_raw(o[sub], d[sub], mesh.tri_v0, mesh.tri_e0, mesh.tri_e1,
+                                       PLAIN_CHUNK)
+        k4_err = max(k4_err, check_closest(f"(B) bvh_closest launch {i}", tk[sub], ik[sub], tp, ip))
+        n_rays += tp.shape[0]
+        parked[i % ti.count].append(int((o[:, 0] == 1.0e9).sum()))
+    for (o, d, t_max), mesh in zip(rec["any"], rec["any_tables"]):
+        occ_k = BV.bvh_any_raw(o, d, mesh, t_max)[sub] > 0
+        occ_p = intersect_any(o[sub], d[sub], mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, t_max[sub],
+                              PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        n_diff += int((occ_k != occ_p).sum())
+        n_rays += occ_p.shape[0]
+    check(n_diff == 0 and len(rec["closest"]) == len(rec["any"]) == ti.count * DEPTH,
+          f"(B) kernel 4 at the pass's {len(rec['closest'])} + {len(rec['any'])} recorded "
+          f"launches of {rec['closest'][0][0].shape[0]} rays, each on its instance's mesh (every "
+          f"{SCENE_K4_STRIDE}th ray, {n_rays} in all): hits as the plain sweep's, any-hit flags "
+          f"equal ({n_diff} differ); max abs t error {k4_err:.3e}")
+    for k in range(ti.count):
+        culled = [p - p0 for p, p0 in zip(parked[k], parked[0])]
+        print(f"  (B) closest-hit rays parked at instance {k} per depth: {parked[k]} of {n_pass} "
+              f"(dead paths and, beyond instance 0's, rays that miss its world box: "
+              f"{culled} culled)")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 7)")
+
+    # (A) many lights: the light tree against uniform selection
+    t0 = time.perf_counter()
+    many = cornell_box_many_lights(W, H, subdiv=MESH_SUBDIV, use_bvh=True, device="cuda")
+    torch.cuda.synchronize()
+    tree = many.light_tree
+    check(tree is not None and tree.n_records == 129 and many.bvh is not None,
+          f"(A) many-lights scene: {many.emissive.v0.shape[0]} emissive triangles and a spot, "
+          f"{tree.n_records} light records in a tree of depth {tree.depth} "
+          f"({tree.feat.shape[0]} nodes), {int((many.bvh.perm >= 0).sum())} triangles in a BVH; "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    films = {}
+    for splits in (1, 4):
+        live = sum(r >= 0 for r in tree.frontiers[{1: 0, 4: 2}[splits]])
+        cfg = cfg_for(many, nee_splits=splits)
+        film, got, _ = timed_pass(many, cfg, f"A, tree, nee_splits={splits}",
+                                  ("bvh_closest_raw", "bvh_any_raw"))
+        check(got["bvh_closest_raw"] == DEPTH and got["bvh_any_raw"] == DEPTH * live,
+              f"(A) nee_splits={splits}: {got['bvh_closest_raw']} closest-hit and "
+              f"{got['bvh_any_raw']} any-hit launches per pass (one shadow query per live root, "
+              f"{live}, and depth)")
+        films[splits] = film
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 7)")
+    film_u, _, _ = timed_pass(many, cfg_for(many, light_strategy="uniform"), "A, uniform",
+                              ("bvh_closest_raw", "bvh_any_raw"), trace=False)
+    check_means_agree("(A) tree (nee_splits=1) and uniform", films[1], film_u)
+    ref = None
+    for k in range(0, TREE_REF_SPP, MESH_SPP):
+        img = MK.render_sample_batch(many, cfg_for(many, nee_splits=2, seed=1), W, H, k,
+                                     nspp=MESH_SPP).sum(0)
+        ref = img if ref is None else ref + img
+    ref = ref / TREE_REF_SPP
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 7)")
+    mse_t = float(((films[1].mean - ref) ** 2).mean())
+    mse_u = float(((film_u.mean - ref) ** 2).mean())
+    check(mse_t < 0.6 * mse_u,
+          f"(A) at {MESH_SPP} spp against a {TREE_REF_SPP}-spp tree image: tree MSE {mse_t:.4e} "
+          f"< 0.6 × uniform's {mse_u:.4e} (ratio {mse_t / mse_u:.3f})")
+    cfg = cfg_for(many)
+    zero()
+    img_k = MK.render_sample_batch(many, cfg, W, H, 0, nspp=TREE_BIT_SPP)
+    got = read()
+    img_p = MK.render_sample_batch(many, dataclasses.replace(cfg, backend="torch",
+                                                             tri_chunk=PLAIN_CHUNK),
+                                   W, H, 0, nspp=TREE_BIT_SPP)
+    torch.cuda.synchronize()
+    check(got["bvh_closest_raw"] == DEPTH and bool(torch.equal(img_k, img_p)),
+          f"(A) {TREE_BIT_SPP} spp: the kernel route (kernel 4, {got['bvh_closest_raw']} + "
+          f"{got['bvh_any_raw']} launches) and backend='torch' give bit-equal films")
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s {tag}")
 
 
 def main() -> int:
@@ -2079,6 +2295,7 @@ def main() -> int:
               f"traced wall {wall_tr * 1e3:.3f} ms {tag}")
     gradients_phase(MK, zero, read, tag, kernel_names)
     scene_files_phase(MK, zero, read, tag, kernel_names)
+    lights_instancing_phase(MK, zero, read, tag, kernel_names)
     print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,18 @@ PyTorch integrator shades them; the fused kernels refuse such scenes
 (``megakernel_cuda_supported``), so their intersection queries still go
 to kernels 2, 3 and 4.
 
+Many lights: a scene with a light tree (``ops/light_tree.py``) selects
+its NEE light by a stochastic importance descent of the tree below 1, 2
+or 4 deterministic subtree roots (``nee_splits``), one shadow ray each,
+and MIS-weights a directly hit emitter by the tree's pmf from the last
+shading point (``PathState.prev_n``, carried only then). Instanced scenes
+(``Scene.instances``) run each query once per instance: rays that miss
+the instance's world box are parked, the rest transformed into object
+space (explicit float32 mul-adds, the direction left unnormalized so t is
+shared) and sent to the kernel of that mesh's own tables, the closest
+hit min-reduced over the instances. Both take ``fused="off"``: the fused
+gate refuses them.
+
 Two routes down the same path:
 
 - ``fused="on"``: ``models/megakernel_cuda.trace_paths_fused``, the whole
@@ -58,7 +70,8 @@ from ..ops.camera import generate_rays, pixel_centers
 from ..ops.envmap import env_radiance, eval_envmap, sample_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
 from ..ops.filters import filter_sampler, sample_filter
-from ..ops.intersect import closest_epilogue, intersect_any, intersect_closest_raw
+from ..ops.intersect import BIG_T, closest_epilogue, intersect_any, intersect_closest_raw
+from ..ops.light_tree import REC_ROW, REC_TRI, light_tree_pmf, sample_light_tree, split_frontier
 from ..ops.lights import AREA, ENV, eval_light, sample_area_light, sample_light
 from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
 from ..ops.raysort import ray_sort_key, sorted_apply, sorted_apply_tmax
@@ -71,7 +84,16 @@ from ..ops.texture import (
     sample_ewa,
     sample_trilinear,
 )
-from ..ops.vecmath import cross, dot, max_component, normalize, offset_ray_origin, sqr
+from ..ops.vecmath import (
+    cross,
+    dot,
+    length,
+    max_component,
+    normalize,
+    offset_ray_origin,
+    safe_sqrt,
+    sqr,
+)
 from ..scene.types import Scene, scene_to
 
 
@@ -99,7 +121,11 @@ class MegakernelConfig:
     pixel_filter: str = "box"  # "box" | "mitchell": camera-sample filter.
     # mitchell = filter importance sampling through the tabulated
     # Mitchell-Netravali filter (radius 2), each sample weighted by sign(f)
-    light_strategy: str = "auto"  # "auto" | "uniform" ("tree": slice 5b)
+    light_strategy: str = "auto"  # "auto" | "uniform" | "tree": NEE light
+    # selection. tree = stochastic light-tree descent with tree-pmf MIS;
+    # uniform = 1/N pick; auto = tree whenever the scene built one
+    nee_splits: int = 1  # 1 | 2 | 4 deterministic root subtrees, one
+    # shadow ray each (tree strategy only)
     texture_filter: str = "trilinear"  # "trilinear" | "ewa": ewa adds
     # bounded-tap anisotropic filtering along the ray-cone footprint's
     # major axis (ops/texture.sample_ewa)
@@ -118,10 +144,10 @@ def _validate(cfg: MegakernelConfig) -> None:
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.pixel_filter not in ("box", "mitchell"):
         raise ValueError(f"unknown pixel_filter {cfg.pixel_filter!r}")
-    if cfg.light_strategy == "tree":
-        raise NotImplementedError("the light tree is not ported yet (slice 5b)")
-    if cfg.light_strategy not in ("auto", "uniform"):
+    if cfg.light_strategy not in ("auto", "uniform", "tree"):
         raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}")
+    if cfg.nee_splits not in (1, 2, 4):
+        raise ValueError(f"nee_splits must be 1, 2 or 4, got {cfg.nee_splits}")
     if cfg.texture_filter not in ("trilinear", "ewa"):
         raise ValueError(f"unknown texture_filter {cfg.texture_filter!r}")
     if cfg.backend not in ("auto", "torch", "cuda"):
@@ -176,7 +202,174 @@ def _brute_rows(scene: Scene):
     return scene.brute_tables[: BRUTE_ROW_WORDS * scene.tri_v0.shape[0]]
 
 
+def _affine_pts(a, p):
+    """A (3,4) affine [R|t] applied to (N,3) points with explicit float32
+    multiply-adds: a matrix product may round through TF32 or bf16 and
+    shift origins far enough to self-shadow."""
+    return torch.stack(
+        [p[:, 0] * a[i, 0] + p[:, 1] * a[i, 1] + p[:, 2] * a[i, 2] + a[i, 3] for i in range(3)],
+        dim=-1,
+    )
+
+
+def _affine_vecs(a, v):
+    """The linear part only (directions)."""
+    return torch.stack(
+        [v[:, 0] * a[i, 0] + v[:, 1] * a[i, 1] + v[:, 2] * a[i, 2] for i in range(3)], dim=-1
+    )
+
+
+def _rows_pts(rows, p):
+    """Per-ray (N,3,4) affines applied to (N,3) points (float32 mul-adds)."""
+    return torch.sum(rows[:, :, :3] * p[:, None, :], dim=-1) + rows[:, :, 3]
+
+
+def _rows_vecs(rows, v):
+    return torch.sum(rows[:, :, :3] * v[:, None, :], dim=-1)
+
+
+def _rows_vecs_t(rows, v):
+    """The transposed linear part (normals: M⁻ᵀ)."""
+    return torch.sum(rows[:, :, :3] * v[:, :, None], dim=-2)
+
+
+def _ray_box_hit(o, d, lo, hi):
+    """(N,) bool: does the forward ray meet the box (lo, hi)? Parked rays
+    (far origin, pointing away) never do."""
+    tiny = 1e-12
+    inv = 1.0 / torch.where(torch.abs(d) < tiny, tiny, d)
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn = torch.minimum(t0, t1).amax(dim=-1)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    return tf >= torch.clamp(tn, min=0.0)
+
+
+def _closest_raw_mesh(cfg, o, d, mesh):
+    """(t, local row) of the rays on one instance's mesh tables: kernel 4
+    for a BVH mesh, kernel 2 otherwise, the plain sweep for CPU tensors."""
+    if not _use_kernels(cfg, o):
+        return intersect_closest_raw(o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, cfg.tri_chunk)
+    if mesh.bvh is not None:
+        return bvh_cuda.bvh_closest_raw(o, d, mesh)
+    return intersect_cuda.closest_bruteforce(
+        o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, rows=mesh.tri_rows
+    )
+
+
+def _any_raw_mesh(cfg, o, d, t_max, mesh):
+    """(N,) bool occlusion of the rays on one instance's mesh tables."""
+    if not _use_kernels(cfg, o):
+        return intersect_any(o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, t_max, cfg.tri_chunk)
+    if mesh.bvh is not None:
+        return bvh_cuda.bvh_any_raw(o, d, mesh, t_max) > 0
+    return intersect_cuda.anyhit_bruteforce(
+        o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, t_max, rows=mesh.tri_rows
+    )
+
+
+def _inst_sort_on(cfg, inst, o) -> bool:
+    """Sort instanced queries (kernel route only): on, or auto with a BVH
+    mesh among the instances."""
+    if not _use_kernels(cfg, o):
+        return False
+    if cfg.sort_rays == "auto":
+        return any(m.bvh is not None for m in inst.meshes)
+    return cfg.sort_rays == "on"
+
+
+def _inst_park(o, d, keep):
+    m = keep[:, None]
+    return (
+        torch.where(m, o, _DEAD_ORIGIN),
+        torch.where(m, d, torch.tensor(_DEAD_DIR, dtype=d.dtype, device=d.device)),
+    )
+
+
+def _instance_rays(inst, k, o, d):
+    """Instance ``k``'s object-space rays and the mask of the rays that
+    meet its world box; the others parked."""
+    a = inst.obj_from_world[k]
+    o_k = _affine_pts(a, o)
+    d_k = _affine_vecs(a, d)
+    if inst.bounds_lo is None:
+        return o_k, d_k, None
+    hit_box = _ray_box_hit(o, d, inst.bounds_lo[k], inst.bounds_hi[k])
+    o_k, d_k = _inst_park(o_k, d_k, hit_box)
+    return o_k, d_k, hit_box
+
+
+def _closest_instanced(scene: Scene, cfg, o, d, alive=None):
+    """Closest hit over the placed meshes: per instance, the rays that meet
+    its world box, in object space (t is shared between the spaces, the
+    object direction left unnormalized), on that mesh's tables; the
+    nearest hit kept with its global row (local row + ``tstart``). One
+    epilogue in the winner's object space over the scene's concatenated
+    arrays, then position, normal (inverse transpose) and error bound
+    back to world space."""
+    inst = scene.instances
+    o, d = _park_dead(o, d, alive)
+    n = o.shape[0]
+
+    def run(o_s, d_s):
+        best_t = torch.full((n,), BIG_T, dtype=torch.float32, device=o.device)
+        best_i = torch.zeros((n,), dtype=torch.int64, device=o.device)
+        best_k = torch.zeros((n,), dtype=torch.int64, device=o.device)
+        for k, mesh in enumerate(inst.meshes):
+            o_k, d_k, hit_box = _instance_rays(inst, k, o_s, d_s)
+            t, i = _closest_raw_mesh(cfg, o_k, d_k, mesh)
+            better = t < best_t
+            if hit_box is not None:
+                better = better & hit_box
+            best_t = torch.where(better, t, best_t)
+            best_i = torch.where(better, i + inst.tstart[k], best_i)
+            best_k = torch.where(better, k, best_k)
+        return best_t, best_i, best_k
+
+    if _inst_sort_on(cfg, inst, o):
+        best_t, best_i, best_k = sorted_apply(o, d, _sort_key(scene, o, d, alive), run)
+    else:
+        best_t, best_i, best_k = run(o, d)
+
+    a_win = inst.obj_from_world[best_k]  # (N,3,4) each ray's instance
+    m_win = inst.world_from_obj[best_k]
+    hit = closest_epilogue(
+        _rows_pts(a_win, o), _rows_vecs(a_win, d), scene.tri_v0, scene.tri_e0, scene.tri_e1,
+        best_t, best_i,
+    )
+    return hit._replace(
+        pos=_rows_pts(m_win, hit.pos),
+        normal=normalize(_rows_vecs_t(a_win, hit.normal)),  # M⁻ᵀ = (obj_from_world)ᵀ
+        error=_rows_vecs(torch.abs(m_win), hit.error),  # conservative |M|·err
+    )
+
+
+def _any_instanced(scene: Scene, cfg, o, d, t_max, alive=None):
+    """Occlusion over the placed meshes: any instance's mesh hit below
+    ``t_max`` (the box test is not clamped to ``t_max``)."""
+    inst = scene.instances
+    o, d = _park_dead(o, d, alive)
+    n = o.shape[0]
+    t_arr = torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (n,)
+    )
+
+    def run(o_s, d_s, t_s):
+        occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
+        for k, mesh in enumerate(inst.meshes):
+            o_k, d_k, hit_box = _instance_rays(inst, k, o_s, d_s)
+            occ_k = _any_raw_mesh(cfg, o_k, d_k, t_s, mesh)
+            occ = occ | (occ_k if hit_box is None else occ_k & hit_box)
+        return occ
+
+    if _inst_sort_on(cfg, inst, o):
+        return sorted_apply_tmax(o, d, t_arr, _sort_key(scene, o, d, alive), run)
+    return run(o, d, t_arr)
+
+
 def _closest(scene: Scene, cfg, o, d, alive=None):
+    if scene.instances is not None:
+        return _closest_instanced(scene, cfg, o, d, alive)
     if not _use_kernels(cfg, o):
         t, i = intersect_closest_raw(
             o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
@@ -198,6 +391,8 @@ def _closest(scene: Scene, cfg, o, d, alive=None):
 
 
 def _any(scene: Scene, cfg, o, d, t_max, alive=None):
+    if scene.instances is not None:
+        return _any_instanced(scene, cfg, o, d, t_max, alive)
     if not _use_kernels(cfg, o):
         return intersect_any(
             o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
@@ -258,6 +453,8 @@ class PathState(NamedTuple):
     cone_w: torch.Tensor | None = None  # (N,) ray-cone width at the origin
     cone_s: torch.Tensor | None = None  # (N,) ray-cone spread angle (rad);
     # both None in scenes without textures, whose shading needs no LOD
+    prev_n: torch.Tensor | None = None  # (N,3) shading normal at the last
+    # bounce: the light tree's pmf of a directly hit emitter (tree only)
 
 
 # spread of a path after its first non-specular bounce: a diffuse
@@ -266,9 +463,9 @@ class PathState(NamedTuple):
 DIFFUSE_CONE_SPREAD = 0.3
 
 
-def init_path_state(n: int, o, d, cone_spread=None) -> PathState:
+def init_path_state(n: int, o, d, cone_spread=None, tree: bool = False) -> PathState:
     """Fresh path state; ``cone_spread`` (the camera's pixel cone, for
-    textured scenes) starts the ray cones."""
+    textured scenes) starts the ray cones; ``tree`` adds ``prev_n``."""
     dev = o.device
     f = dict(dtype=torch.float32, device=dev)
     b = dict(dtype=torch.bool, device=dev)
@@ -284,7 +481,22 @@ def init_path_state(n: int, o, d, cone_spread=None) -> PathState:
         prev_delta=torch.ones((n,), **b),  # the camera counts as delta
         cone_w=None if cone_spread is None else torch.zeros((n,), **f),
         cone_s=None if cone_spread is None else cone_spread.expand(n).clone(),
+        prev_n=-d if tree else None,  # unused while prev_delta (weight 1)
     )
+
+
+def _tree_on(cfg, scene) -> bool:
+    """NEE light selection: the tree or uniform."""
+    if cfg.light_strategy == "tree":
+        if scene.light_tree is None:
+            raise ValueError(
+                "light_strategy='tree' but the scene has no light tree "
+                "(build with scene_from_host(use_light_tree=True))"
+            )
+        return True
+    if cfg.light_strategy == "uniform":
+        return False
+    return scene.light_tree is not None
 
 
 class SurfaceUV(NamedTuple):
@@ -457,6 +669,109 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     return torch.where(ok[..., None], contrib, 0.0)
 
 
+def _tree_record_nee(scene: Scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, alive=None, ns=None):
+    """Contribution of one light-tree record (a point/spot row or an
+    emissive triangle) selected with pmf ``pmf``; one shadow ray, marked
+    dead where the contribution is zero anyway."""
+    tree = scene.light_tree
+    kind = tree.rec_kind[rec]
+    idx = tree.rec_idx[rec].to(torch.int64)
+
+    # light-table rows (point/spot): not geometry, NEE only
+    lt = scene.lights.gather(torch.where(kind == REC_ROW, idx, 0))
+    ls = sample_light(lt, hit.pos, u1, u2, hit.normal, types=scene.light_types)
+    direction, distance, pdf = ls.direction, ls.distance, ls.pdf
+    le = eval_light(lt, ls)
+    is_tri = kind == REC_TRI
+
+    # emissive-triangle records: a uniform point on that triangle
+    if scene.emissive is not None:
+        em = scene.emissive
+        k = torch.where(is_tri, idx, 0)
+        tv0, te0, te1, trad = em.v0[k], em.e0[k], em.e1[k], em.rad[k]
+        su = safe_sqrt(u1)
+        b1 = 1.0 - su
+        b2 = u2 * su
+        p = tv0 + b1[..., None] * te0 + b2[..., None] * te1
+        n_e = cross(te0, te1)
+        area2 = torch.clamp(length(n_e), min=1e-12)
+        n_e = n_e / area2[..., None]
+        to_p = p - hit.pos
+        d2 = torch.clamp(dot(to_p, to_p), min=1e-12)
+        dist = torch.sqrt(d2)
+        d_tri = to_p / dist[..., None]
+        cos_l = torch.abs(dot(d_tri, n_e))
+        pdf_tri = torch.where(
+            cos_l > 1e-6, d2 / torch.clamp(cos_l * 0.5 * area2, min=1e-12), 0.0
+        )
+        direction = torch.where(is_tri[..., None], d_tri, direction)
+        distance = torch.where(is_tri, dist * 0.999, distance)
+        pdf = torch.where(is_tri, pdf_tri, pdf)
+        le = torch.where(is_tri[..., None], trad, le)
+
+    f_cos, bsdf_pdf = eval_bsdf(
+        mat, wo, direction, hit.normal if ns is None else ns, hit.normal, inside,
+        ft=cfg.features,
+    )
+    shadow_live = (pdf > 0.0) & (pmf > 0.0) & (max_component(f_cos) > 0.0)
+    if alive is not None:
+        shadow_live = shadow_live & alive
+    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
+    occluded = _any(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
+
+    # rows: NEE only, divided by the selection pmf; triangles: power-
+    # heuristic MIS on the full density pmf·pdf
+    contrib = le * f_cos / torch.clamp(pmf, min=1e-12)[..., None]
+    if scene.emissive is not None:
+        pdf_total = pdf * pmf
+        w = sqr(pdf_total) / torch.clamp(sqr(pdf_total) + sqr(bsdf_pdf), min=1e-24)
+        contrib_tri = le * f_cos * (w / torch.clamp(pdf_total, min=1e-12))[..., None]
+        contrib = torch.where(is_tri[..., None], contrib_tri, contrib)
+    ok = (pdf > 0.0) & (pmf > 0.0) & ~occluded
+    return torch.where(ok[..., None], contrib, 0.0)
+
+
+def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+    """Light-tree NEE: below each live root of the deterministic split
+    (``cfg.nee_splits`` subtrees) one importance descent and one shadow
+    ray (dims ``TREE_U + 3·slot``); the infinite rows (environment,
+    directional) outside the tree each sampled every bounce (pmf 1)."""
+    tree = scene.light_tree
+    _, roots = split_frontier(tree, cfg.nee_splits)
+    total = torch.zeros_like(hit.pos)
+    for slot, root in enumerate(roots):
+        if root < 0:
+            continue
+        base = depth_dim + R.Dim.TREE_U + 3 * slot
+        u_sel = sampler.sample_1d(px, py, sample, base)
+        u1, u2 = sampler.sample_2d(px, py, sample, base + 1)
+        rec, pmf = sample_light_tree(tree, hit.pos, hit.normal, u_sel, root=root)
+        total = total + _tree_record_nee(
+            scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, alive=alive, ns=ns,
+        )
+    n = hit.pos.shape[0]
+    for k in range(tree.n_infinite):
+        lt = scene.lights.gather(tree.infinite_rows[k].to(torch.int64).expand(n))
+        u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.LIGHT_U)
+        ls = sample_light(lt, hit.pos, u1, u2, hit.normal, types=scene.light_types)
+        le = eval_light(lt, ls)
+        shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, ls.direction)
+        occluded = _any(scene, cfg, shadow_o, ls.direction, ls.distance, alive=alive)
+        f_cos, _ = eval_bsdf(
+            mat, wo, ls.direction, hit.normal if ns is None else ns, hit.normal, inside,
+            ft=cfg.features,
+        )
+        # environment rows are extended (uniform-sphere) lights: divide by the pdf
+        c_inf = torch.where(
+            (lt.ltype == ENV)[..., None],
+            le * f_cos / torch.clamp(ls.pdf, min=1e-12)[..., None],
+            le * f_cos,
+        )
+        ok = (ls.pdf > 0.0) & ~occluded
+        total = total + torch.where(ok[..., None], c_inf, 0.0)
+    return total
+
+
 def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
     """Environment-map NEE at the hit points, power-heuristic MIS against
     BSDF sampling → (N,3) contribution."""
@@ -511,15 +826,27 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         suv = _uv_at_hit(scene, hit)
         mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
         ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
+    use_tree = _tree_on(cfg, scene)
     if scene.emissive is not None:
         # directly-hit emitter, MIS-weighted against the NEE estimator
         # (weight 1 after delta bounces and the camera)
         cos_l = torch.abs(dot(state.d, hit.normal))
-        pdf_hit = (
-            sqr(hit.t)
-            / torch.clamp(cos_l * scene.emissive.area, min=1e-12)
-            * (1.0 / scene.num_lights)
-        )
+        if use_tree and scene.tri_emrec is not None:
+            # NEE's density for this triangle: the tree's pmf from the last
+            # shading point times the triangle's own area pdf
+            levels, _ = split_frontier(scene.light_tree, cfg.nee_splits)
+            rec_hit = torch.clamp(scene.tri_emrec[hit.tri], min=0)
+            pmf_sel = light_tree_pmf(
+                scene.light_tree, rec_hit, state.o, state.prev_n, split_levels=levels
+            )
+            area_tri = 0.5 * length(cross(scene.tri_e0[hit.tri], scene.tri_e1[hit.tri]))
+            pdf_hit = sqr(hit.t) / torch.clamp(cos_l * area_tri, min=1e-12) * pmf_sel
+        else:
+            pdf_hit = (
+                sqr(hit.t)
+                / torch.clamp(cos_l * scene.emissive.area, min=1e-12)
+                * (1.0 / scene.num_lights)
+            )
         w_em = torch.where(
             state.prev_delta,
             1.0,
@@ -529,7 +856,7 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         radiance = radiance + torch.where(
             alive[..., None], state.beta * mat.emission * w_em[..., None], 0.0
         )
-    nee = _nee(
+    nee = (_nee_tree if use_tree else _nee)(
         scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
         alive=alive, ns=ns,
     )
@@ -591,6 +918,7 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
         prev_delta=torch.where(alive, bs.delta, state.prev_delta),
         cone_w=cone_w,
         cone_s=cone_s,
+        prev_n=None if state.prev_n is None else torch.where(a3, ns, state.prev_n),
     )
 
 
@@ -611,7 +939,7 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
         sample = sample.to(dev)
     sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
     spread = None if scene.textures is None else pixel_cone_spread(scene.cam_from_raster)
-    state = init_path_state(o.shape[0], o, d, spread)
+    state = init_path_state(o.shape[0], o, d, spread, tree=_tree_on(cfg, scene))
 
     def bounces(depths, state):
         for depth in depths:

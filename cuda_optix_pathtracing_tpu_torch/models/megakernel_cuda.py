@@ -98,7 +98,11 @@ def megakernel_cuda_supported(scene: Scene, cfg) -> bool:
     memory, so only the traversal stacks bound the tree (its depth). Like
     the reference, it refuses textures, shading normals and an environment
     whose texels differ: the kernels shade with the table's constants and
-    the geometric normal."""
+    the geometric normal. It refuses instanced scenes and scenes with a
+    light tree too: the kernels know one mesh in world space and select
+    lights uniformly."""
+    if scene.instances is not None or scene.light_tree is not None:
+        return False
     if scene.textures is not None or scene.tri_ns is not None:
         return False
     if cfg.sampler not in SAMPLERS or cfg.env_nee:

@@ -1,10 +1,13 @@
 """Wrappers of the BVH traversal kernels (``csrc/bvh.cu``), the
 counterpart of the reference ``ops/bvh_pallas.py``.
 
-``bvh_closest_raw`` and ``bvh_any_raw`` take the rays and a BVH scene:
-the kernels walk its compact tables (``scene.bvh.nodes``, 256 B nodes, and
-``scene.tri_rows``, ``(Tp, 12)`` rows in packed-BVH order), built once per
-scene, as the fused kernels do. Nothing is packed per launch. For
+``bvh_closest_raw`` and ``bvh_any_raw`` take the rays and one mesh's
+tables: a BVH scene's own, or an instance's base mesh
+(``scene/types.MeshTables``, whose fields a Scene shares). The kernels
+walk its compact tables (``bvh.nodes``, 256 B nodes, and ``tri_rows``,
+``(Tp, 12)`` rows in packed-BVH order), built once per scene, as the
+fused kernels do, and return rows local to that mesh. Nothing is packed
+per launch. For
 CUDA tensors each wrapper launches its kernel or raises; for CPU tensors
 it runs the plain version, the brute-force sweep over the same packed,
 padded arrays (``ops/intersect.py``), which is what the reference computes
@@ -43,12 +46,13 @@ def _lib():
 
 
 def check_bvh_scene(scene, o, d) -> None:
-    """Raise unless ``scene`` has a BVH the kernels can walk (its depth
-    fits their stack, its compact tables are contiguous and its node
-    indices fit a stack entry's 24 bits) and the rays are (N, 3) float32 on
-    its device. Both kernel families walk the same tables
-    (``csrc/bvh_compact.cuh``): the traversal kernels here and the fused
-    BVH kernels (``models/megakernel_cuda.py``)."""
+    """Raise unless ``scene`` (a Scene or one mesh's MeshTables) has a BVH
+    the kernels can walk (its depth fits their stack, its compact tables
+    (a Scene's material ids too, which the fused kernels read) are
+    contiguous and its node indices fit a stack entry's 24 bits) and the
+    rays are (N, 3) float32 on its device. Both kernel families walk the
+    same tables (``csrc/bvh_compact.cuh``): the traversal kernels here and
+    the fused BVH kernels (``models/megakernel_cuda.py``)."""
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH")
@@ -62,11 +66,12 @@ def check_bvh_scene(scene, o, d) -> None:
     for name, x in (("o", o), ("d", d)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
             raise ValueError(f"{name} must be (N, 3) float32, got {tuple(x.shape)} {x.dtype}")
-        if x.device != scene.device:
-            raise ValueError(f"{name} is on {x.device}, the scene on {scene.device}")
+        if x.device != scene.tri_v0.device:
+            raise ValueError(f"{name} is on {x.device}, the scene on {scene.tri_v0.device}")
     if o.shape[0] != d.shape[0]:
         raise ValueError("o and d differ in length")
-    if not all(x.is_contiguous() for x in (bvh.nodes, scene.tri_rows, scene.tri_mat)):
+    tables = (bvh.nodes, scene.tri_rows, getattr(scene, "tri_mat", bvh.nodes))
+    if not all(x.is_contiguous() for x in tables):
         raise ValueError("the scene's compact BVH tables must be contiguous")
 
 
@@ -75,8 +80,8 @@ def _tables(scene):
 
 
 def bvh_closest_raw(o, d, scene):
-    """Closest hit of every ray → (t (N,) f32, packed row (N,) int64),
-    BIG_T and row 0 on a miss."""
+    """Closest hit of every ray on the mesh ``scene`` → (t (N,) f32,
+    packed row (N,) int64), BIG_T and row 0 on a miss."""
     if not o.is_cuda:
         return intersect_closest_raw(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
     return _closest_launch(o, d, scene)

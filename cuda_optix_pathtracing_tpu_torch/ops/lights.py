@@ -6,8 +6,11 @@ Each ray carries its gathered light row and the light types are
 evaluated as masked dense code; a caller that knows which types its table
 holds passes them (``types``), and the branches of absent types are not
 run. Spot attenuation uses a correct smoothstep; a constant-environment
-row's pdf is the uniform sphere's 1/(4π). The light tree is not ported
-yet (slice 5b).
+row's pdf is the uniform sphere's 1/(4π). Scenes with many finite lights
+select them through the light tree (``ops/light_tree.py``): its records
+are the POINT/SPOT rows of the table (``REC_ROW``) and the triangles of
+the ``EmissiveTable`` (``REC_TRI``), each sampled on its own; ENV and
+DIRECTIONAL rows stay outside it and are sampled every bounce.
 """
 
 from __future__ import annotations

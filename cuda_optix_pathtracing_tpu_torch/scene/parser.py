@@ -19,9 +19,11 @@ to the canonical pose (origin, direction (0,0,-1)).
 A texture or environment file that is missing or not a PNG is warned
 about and replaced, as in the reference: materials fall back to their
 constants, the environment to a dim constant 0.05. An object that the
-world places under two or more transforms would become an instance group
-in the reference; instancing is not ported yet (slice 5b), so such a
-scene raises ``NotImplementedError``.
+world places under two or more transforms loads its mesh once, as an
+instance group (``HostScene.add_instance_group``), and everything else
+bakes into world space; grouping is skipped (every placement bakes) when
+the scene has textures or emissive materials, and for an object with
+authored normals.
 """
 
 from __future__ import annotations
@@ -331,9 +333,9 @@ def parse_scene(path: str) -> tuple[HostScene, ParsedScene]:
     world = doc.get("world", {})
     placed_lights = set()
 
-    # an object placed under two or more transforms becomes an instance
-    # group in the reference (unless the scene has textures or emissive
-    # materials, or the object has normals, which bake): not ported yet
+    # an object placed under two or more transforms loads its mesh once as
+    # an instance group (unless the scene has textures or emissive
+    # materials, or the object has authored normals: those bake)
     placements = {}
     for tname, binding in world.items():
         for oname in binding.get("instances", []):
@@ -342,6 +344,7 @@ def parse_scene(path: str) -> tuple[HostScene, ParsedScene]:
         np.max(np.asarray(mj.get("emission", (0.0,) * 3))) > 0.0
         for mj in hs.materials
     )
+    grouped = set()
     if not hs.textures and not scene_emissive:
         for oname, mats in placements.items():
             if len(mats) < 2 or any(m is None for m in mats):
@@ -351,12 +354,20 @@ def parse_scene(path: str) -> tuple[HostScene, ParsedScene]:
                 raise SceneParseError(
                     f"world references unknown object '{oname}'"
                 )
-            if _object_triangles(oj, base_dir)[2] is None:
-                raise NotImplementedError(
-                    f"object '{oname}' is placed under {len(mats)} transforms, "
-                    "an instance group: instancing is not ported yet (slice 5b: "
-                    "light tree and instancing)"
-                )
+            tris, _, normals = _object_triangles(oj, base_dir)
+            if normals is not None:
+                continue  # authored normals bake
+            mat = mat_ids[oj.get("material", next(iter(mat_ids)))]
+            hs.add_instance_group(np.asarray(tris, np.float32), mat, np.stack(mats))
+            grouped.add(oname)
+    if grouped:
+        world = {
+            tname: {
+                **binding,
+                "instances": [o for o in binding.get("instances", []) if o not in grouped],
+            }
+            for tname, binding in world.items()
+        }
 
     for tname, binding in world.items():
         m = transforms.get(tname)

@@ -99,8 +99,9 @@ def generate_plane(center, normal, width, height):
     ]
 
 
-def _cornell_host(width: int, height: int, lat: int, lon: int) -> HostScene:
-    """The Cornell box with spheres of ``lat`` × ``lon`` subdivisions."""
+def cornell_host(width: int, height: int, lat: int, lon: int) -> HostScene:
+    """The Cornell box's HostScene, with spheres of ``lat`` × ``lon``
+    subdivisions."""
     white = (0.9, 170.0 / 204.0, 160.0 / 204.0)
     hs = HostScene()
     hs.add_model(generate_sphere((-1.2, 2.0, -0.25), 0.5, lat, lon), 0)
@@ -152,7 +153,7 @@ def cornell_box(width: int = 256, height: int = 256, device="cuda") -> Scene:
       radius 0.01; constant environment 0.1
     - camera at origin looking +y, 20mm/36mm
     """
-    return scene_from_host(_cornell_host(width, height, 2, 4), device=device)
+    return scene_from_host(cornell_host(width, height, 2, 4), device=device)
 
 
 def cornell_box_mesh(
@@ -162,5 +163,75 @@ def cornell_box_mesh(
     triangles; 16,138 at subdiv 64): the BVH scene. Same materials,
     light and camera as ``cornell_box``."""
     return scene_from_host(
-        _cornell_host(width, height, subdiv, subdiv), use_bvh=use_bvh, device=device
+        cornell_host(width, height, subdiv, subdiv), use_bvh=use_bvh, device=device
     )
+
+
+def cornell_box_mesh_instanced(
+    width: int = 256, height: int = 256, subdiv: int = 48, use_bvh=None, device="cuda"
+) -> Scene:
+    """``cornell_box_mesh`` with each sphere an instance of its own
+    origin-centred base mesh, placed by a translation; the walls bake (one
+    identity instance). The same geometry and estimator as the baked
+    scene, through per-mesh tables, world-box culling and sorted queries."""
+    white = (0.9, 170.0 / 204.0, 160.0 / 204.0)
+    hs = HostScene()
+    hs.add_material(B.oren_nayar((1.0, 0.7, 0.3), 0.7))
+    hs.add_material(
+        B.ggx_dielectric((0.02, 0.07, 0.01), (0.95, 0.95, 0.87), 1.0, 1.44, 0.5, 0.7)
+    )
+    hs.add_model(generate_plane((0, 4, 0), (0, -1, 0), 4, 4), 2)
+    hs.add_material(B.oren_nayar(white, 0.5))
+    hs.add_model(generate_plane((0, 2, -0.5), (0, 0, 1), 4, 4), 3)
+    hs.add_material(B.oren_nayar((1.0, 0.7, 0.3), 0.7))
+    hs.add_model(generate_plane((0, 2, 2), (0, 0, -1), 4, 4), 4)
+    hs.add_material(B.oren_nayar(white, 0.5))
+    hs.add_model(generate_plane((-2, 2, 0), (1, 0, 0), 4, 4), 5)
+    hs.add_material(B.oren_nayar((1.0, 0.01, 0.01), 0.6))
+    hs.add_model(generate_plane((2, 2, 0), (-1, 0, 0), 4, 4), 6)
+    hs.add_material(B.oren_nayar((0.01, 1.0, 0.01), 0.6))
+    base = np.stack(generate_sphere((0.0, 0.0, 0.0), 0.5, subdiv, subdiv))
+
+    def at(p):
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = p
+        return m[None]
+
+    hs.add_instance_group(base, 0, at((-1.2, 2.0, -0.25)))
+    hs.add_instance_group(base, 1, at((1.2, 2.4, -0.25)))
+    hs.add_light(
+        L.spot_light(
+            (2.0, 2.0, 2.0),
+            (0.0, 1.8, 1.7),
+            (0.0, 0.0, -1.0),
+            float(np.cos(np.pi / 6)),
+            float(np.cos(np.pi / 3)),
+            0.01,
+        )
+    )
+    hs.env_color = (0.1, 0.1, 0.1)
+    hs.camera = CameraConfig(
+        position=(0.0, 0.0, 0.0), direction=(0.0, 1.0, 0.0), width=width, height=height
+    )
+    return scene_from_host(hs, use_bvh=use_bvh, device=device)
+
+
+def cornell_box_many_lights(
+    width: int = 256, height: int = 256, subdiv: int = 64, use_bvh=None, device="cuda"
+) -> Scene:
+    """``cornell_box_mesh`` under an 8 × 8 array of emissive ceiling quads
+    (0.2 on a side, 0.5 apart across the box and 0.25 deep), each of its
+    own material with radiance 4 × 10^u, u uniform in [−1.5, 0.5) from a
+    numpy seed (lights of unequal power): with the spot, 129 finite light
+    records, so the scene gets a light tree. The array hangs over the
+    front half of the box, outside the camera's view: seen directly, its
+    edges would add anti-aliasing noise that no light selection changes."""
+    hs = cornell_host(width, height, subdiv, subdiv)
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        for j in range(8):
+            r = 4.0 * 10.0 ** rng.uniform(-1.5, 0.5)
+            mat = hs.add_material(B.diffuse_light((r, 0.93 * r, 0.8 * r)))
+            center = (-1.75 + 0.5 * i, 0.15 + 0.25 * j, 1.99)
+            hs.add_model(generate_plane(center, (0, 0, -1), 0.2, 0.2), mat)
+    return scene_from_host(hs, use_bvh=use_bvh, device=device)

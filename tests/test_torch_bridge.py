@@ -80,10 +80,13 @@ def test_mesh_scene_equals_carried_over_reference():
 
 
 def test_scene_from_arrays_refuses_later_slices(ref_scene):
+    """Every reference field is ported now (the light tree and instances
+    last): a tree or an instance table whose arrays are incomplete is
+    refused, naming the missing array."""
     fields = flatten_scene(ref_scene)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        scene_from_arrays({**fields, "light_tree.nodes": np.zeros(1)}, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 5b"):
+    with pytest.raises(KeyError, match="light_tree.rec_kind"):
+        scene_from_arrays({**fields, "light_tree.feat": np.zeros((1, 15))}, "cpu")
+    with pytest.raises(KeyError, match="instances.meshes.0.v0"):
         scene_from_arrays({**fields, "instances.tstart": np.zeros(2, np.int32)}, "cpu")
 
 

@@ -70,8 +70,8 @@ def test_cli_refuses_unported_scenes(tmp_path):
 
 
 def test_cli_refuses_instanced_scene(tmp_path):
-    """An object the world places under two transforms would be an
-    instance group, which is not ported yet: the scene raises."""
+    """An object the world places under two transforms becomes an instance
+    group, which the port renders now: the CLI writes its image."""
     doc = {
         "materials": [{"name": "m", "diffuse": [0.5, 0.5, 0.5]}],
         "objects": [{"name": "box", "type": "primitive", "shape": "cube", "material": "m"}],
@@ -83,5 +83,5 @@ def test_cli_refuses_instanced_scene(tmp_path):
     }
     path = tmp_path / "twice.json"
     path.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        cli.main(ARGS + ["--scene", str(path), "--out", str(tmp_path / "x.png")])
+    assert cli.main(ARGS + ["--scene", str(path), "--out", str(tmp_path / "x.png")]) == 0
+    assert read_png(str(tmp_path / "x.png")).ndim == 3

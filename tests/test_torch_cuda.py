@@ -629,6 +629,70 @@ def test_textured_bvh_scene_kernel_route_matches_plain(dev):
     assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
 
 
+def _counts():
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+
+    torch.cuda.synchronize()
+    return np.array([IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches,
+                     BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches,
+                     MKC.trace_paths_fused.launches])
+
+
+def _hold_kernel_route(scene, cfg, size, counts):
+    """Render one spp on the kernel route (launches per kernel equal
+    ``counts``: closest, any-hit, BVH closest, BVH any-hit, fused) and on
+    ``backend="torch"``: the same image to the parity bar."""
+    import dataclasses
+
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import render_sample_batch, resolve_fused
+
+    assert resolve_fused(scene, cfg).fused == "off"
+    before = _counts()
+    img_k = render_sample_batch(scene, cfg, size, size, 0)
+    assert (_counts() - before).tolist() == list(counts)
+    img_p = render_sample_batch(scene, dataclasses.replace(cfg, backend="torch"), size, size, 0)
+    diff = (img_k - img_p).abs()
+    assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.0
+    assert float(diff.mean()) < 1e-4
+    assert float((diff.max(-1).values > 1e-3).float().mean()) < 0.005
+
+
+@pytest.mark.parametrize("use_bvh", [True, False])
+def test_instanced_scene_kernel_route_matches_plain(dev, use_bvh):
+    """The instanced Cornell box (walls, two sphere meshes: 3 instances):
+    each query runs once per instance on its mesh's own tables (kernel 4
+    with BVHs, kernels 2 and 3 without), and the image equals the plain
+    sweep's to the parity bar."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh_instanced
+
+    scene = cornell_box_mesh_instanced(32, 32, subdiv=8, use_bvh=use_bvh, device=dev)
+    assert scene.instances.count == 3
+    per = 3 * 3  # 3 instances × depth 3
+    counts = (0, 0, per, per, 0) if use_bvh else (per, per, 0, 0, 0)
+    _hold_kernel_route(scene, MegakernelConfig(max_depth=3), 32, counts)
+
+
+@pytest.mark.parametrize("use_bvh", [True, False])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_tree_scene_kernel_route_matches_plain(dev, use_bvh, splits):
+    """A light-tree scene (``cornell_box_many_lights``: an 8×8 grid of
+    emissive ceiling quads in the Cornell box, 129 finite records): one
+    shadow query per live root of the split and bounce, and the image
+    equals the plain sweep's to the parity bar."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig
+    from cuda_optix_pathtracing_tpu_torch.scene.procedural import cornell_box_many_lights
+
+    scene = cornell_box_many_lights(32, 32, subdiv=8, use_bvh=use_bvh, device=dev)
+    assert scene.light_tree is not None and scene.light_tree.n_records == 129
+    live = sum(r >= 0 for r in scene.light_tree.frontiers[{1: 0, 4: 2}[splits]])
+    depth = 3
+    counts = ((0, 0, depth, depth * live, 0) if use_bvh else (depth, depth * live, 0, 0, 0))
+    _hold_kernel_route(scene, MegakernelConfig(max_depth=depth, nee_splits=splits), 32, counts)
+
+
 # ---- gradients (models/differentiable.py) --------------------------------------
 
 

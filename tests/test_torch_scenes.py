@@ -23,6 +23,7 @@ from cuda_optix_pathtracing_tpu_torch.scene import load_pbrt, load_scene, scene_
 from cuda_optix_pathtracing_tpu_torch.scene import parser as tparser
 from cuda_optix_pathtracing_tpu_torch.scene import pbrt as tpbrt
 from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host as t_from_host
+from cuda_optix_pathtracing_tpu_torch.utils.imageio import write_png
 from test_torch_bridge import _leaves, flatten_scene
 
 torch.set_num_threads(2)
@@ -207,10 +208,23 @@ def test_missing_files_substitute_as_reference(tmp_path, caplog):
 
 
 def test_instance_groups_raise(tmp_path):
+    """An object under two transforms becomes the reference's instance
+    group (mesh, material, transforms equal); in a textured scene it bakes
+    instead, and a grouped build with textures raises."""
     doc = {**BASE, "transforms": BASE["transforms"] + [
         {"name": "b", "srt": {"translation-vector": [1, 2, 0]}}]}
     doc["world"] = {"a": {"instances": ["box"]}, "b": {"instances": ["box"]}}
     path = _write(tmp_path, doc)
-    assert jparser.parse_scene(path)[0].instance_groups  # the reference groups it
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tparser.parse_scene(path)
+    (jg,), (tg,) = jparser.parse_scene(path)[0].instance_groups, tparser.parse_scene(path)[0].instance_groups
+    for key in ("tris", "mat", "transforms"):
+        np.testing.assert_array_equal(tg[key], jg[key], err_msg=key)
+    write_png(str(tmp_path / "t.png"), np.full((4, 4, 3), 128, np.uint8))
+    doc["textures"] = [{"name": "t", "type": "diffuse", "path": "t.png"}]
+    doc["materials"] = [{"name": "m", "diffuse": "t"}]
+    ths = tparser.parse_scene(_write(tmp_path, doc))[0]
+    jhs = jparser.parse_scene(_write(tmp_path, doc))[0]
+    assert ths.textures and not ths.instance_groups and not jhs.instance_groups
+    assert len(ths.triangles) == len(jhs.triangles) == 24
+    ths.add_instance_group(ths.triangles[:12], 0, np.eye(4)[None])
+    with pytest.raises(ValueError, match="textured"):
+        t_from_host(ths, device="cpu")
