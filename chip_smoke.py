@@ -5,7 +5,7 @@
 
 Two procedural scenes, each down every route of the port, then the
 bundled scene files (phase 6), then instanced and many-lights scenes
-(phase 7):
+(phase 7), then the multi-rank, wavefront and debugging paths (phase 8):
 
 - the Cornell box (26 triangles, brute force): the fused kernel
   ``pt_fused_bruteforce`` and, with ``fused="off"``, the closest-hit and
@@ -111,6 +111,26 @@ Phases (each fails loudly; there is no CPU fallback):
    4 through kernel 4, against uniform selection within 5 sigma, the
    tree's MSE below 0.6× uniform's against a converged tree image, and
    the kernel route bit-equal to ``backend="torch"`` at 2 spp;
+8. the sharded render and step, the wavefronts, the NaN guard and the
+   CLI's multi-process mode (``parallel/``, ``models/wavefront.py``), at
+   256², depth 5, each run with the counts zeroed just before and read
+   just after, and no fused kernel in a traced spp: (a) a group of one
+   rank on NCCL in this process, ``render_multihost`` of the Cornell box
+   (8 spp, kernels 2 and 3) and the mesh box (4 spp, kernel 4), each film
+   bit-equal to the unsharded Welford loop, with Mpaths/s; (b) the same
+   renders by two processes sharing the card (gloo; this script started
+   again with ``--phase8-rank``), the gathered films bit-equal to (a)'s,
+   each rank's wall and host launches, the aggregate Mpaths/s; (c)
+   bench.py's albedo step (4 spp, ``remat=True``) sharded at world 1 and
+   2, loss within 1e-6 relative and gradient within the reference's bar
+   of ``make_loss``'s, three Adam steps lowering the loss, fwd+bwd
+   Mpaths/s; (d) the dense wavefront bit-equal to ``render(fused="off",
+   pixel_order="linear")``, the depth its loop reached; (e) the pool at
+   16 spp within 3e-5 (mean) and 3e-4 (M2) of ``render(fused="off")``,
+   its iterations, device kernels and device-busy share beside the dense
+   route's Mpaths/s; (f) the NaN guard on a poisoned albedo and on a
+   clean 64² render; (g) two CLI processes (``--phase8-cli``) at 64², 4
+   spp, rank 0's PNGs byte-equal to a one-process run's;
 then one JSON line with every kernel, and as the last line
 ``{"ok": true, "device": ...}``.
 
@@ -209,6 +229,20 @@ TREE_REF_SPP = 128
 TREE_BIT_SPP = 2
 PLAIN_CHUNK = 256  # triangles per step of phase 7's plain sweeps (their
 # results do not depend on it: the first of equal t wins either way)
+# phase 8, the sharded render and step, the wavefronts, the NaN guard and
+# the CLI's multi-process mode, at 256², depth 5: the sharded and dense
+# renders at SPP_OFF samples (Cornell, kernels 2 and 3) and SHARD_MESH_SPP
+# (the mesh box, kernel 4); the pool at pool_bench.py's 16 spp; the step
+# at GRAD_SPP, sample by sample
+SHARD_MESH_SPP = 4
+POOL_SPP = 16
+POOL_TRACE_SPP = 4  # the traced pool run: its device-busy share and kernels
+POOL_MEAN_ATOL, POOL_M2_ATOL = 3e-5, 3e-4  # tests/test_wavefront.py:75-80
+SHARD_LOSS_RTOL = 1e-6
+SHARD_GRAD_RTOL = 1e-4  # and atol 1e-4·max|g| (tests/test_sharded.py:117-127)
+NAN_SIZE = 64
+CLI_MP_SIZE, CLI_MP_SPP = 64, 4
+WORKER_TIMEOUT_S = 420
 # an empty kernel, built beside the port's kernels: the card's per-launch
 # floor, timed beside the bounds
 FLOOR_CU = r"""
@@ -219,6 +253,20 @@ extern "C" int empty_launch(int n_threads, void* stream) {
   return (int)cudaGetLastError();
 }
 """
+
+
+# the profiler's names of the port's kernels (``is_kernel`` parts)
+KERNEL_NAMES = {
+    "fused": ("::pt_fused_kernel<", "BruteGeo", "HashRng>"),
+    "fused_halton": ("::pt_fused_kernel<", "BruteGeo", "HaltonRng>"),
+    "closest": "::closest_kernel(",
+    "anyhit": "::anyhit_kernel(",
+    "bvh_closest": "::bvh_closest_kernel(",
+    "bvh_anyhit": "::bvh_anyhit_kernel(",
+    "fused_bvh": ("::pt_fused_bvh_kernel<", "HashRng>"),
+    "fused_bvh_halton": ("::pt_fused_bvh_kernel<", "HaltonRng>"),
+    "bounce": ("::pt_bounce_kernel<", "HashRng>"),
+}
 
 
 def card_line() -> str:
@@ -685,6 +733,30 @@ def record_fused_launches(MKC, fn):
     finally:
         MKC.trace_paths_fused = fused
     return rec
+
+
+def launch_counters():
+    """(the kernel wrappers, zero, read): ``zero`` sets every wrapper's
+    launch count to 0, ``read`` returns them by name, each after a sync."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+
+    counters = (MKC.trace_paths_fused, IC.closest_bruteforce, IC.anyhit_bruteforce,
+                BV.bvh_closest_raw, BV.bvh_any_raw, MKC.bounce_fused)
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    return counters, zero, read
 
 
 def check(cond: bool, what: str) -> None:
@@ -1368,6 +1440,487 @@ def lights_instancing_phase(MK, zero, read, tag: str, kernel_names: dict) -> Non
     print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s {tag}")
 
 
+def unsharded_film(scene, cfg, spp: int):
+    """The Welford loop of ``render_sharded`` over every pixel, in one
+    block: phase 8's equality oracle (the reference's ``_single_device_film``)."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.ops.film import Film, film_add_sample
+    from cuda_optix_pathtracing_tpu_torch.parallel.render import _render_pixels
+
+    ids = torch.arange(W * H, dtype=torch.int64, device=scene.device)
+    px, py = ids % W, ids // W
+    z = torch.zeros((W * H, 3), dtype=torch.float32, device=scene.device)
+    film = Film(z, z.clone(), torch.zeros((), dtype=torch.float32, device=scene.device))
+    for s in range(spp):
+        film = film_add_sample(film, _render_pixels(scene, cfg, px, py, s))
+    return film
+
+
+def path_trace(fn, spp: int):
+    """One run of ``fn`` under the profiler (host and device) → per spp:
+    device-busy seconds, host kernel launches and traced wall; the
+    launches of kernels 2, 3 and 4 in the trace; the fused and
+    single-bounce kernels it holds (none on phase 8's paths)."""
+    wall, rows = profiled(fn)
+    dev_rows = device_rows(rows)
+    busy = sum(e.self_device_time_total for e in dev_rows) / 1e6
+    seen = {k: sum(e.count for e in dev_rows if is_kernel(e.key, KERNEL_NAMES[k]))
+            for k in ("closest", "anyhit", "bvh_closest", "bvh_anyhit")}
+    fused = sorted({e.key[:60] for e in dev_rows if "pt_fused" in e.key or "pt_bounce" in e.key})
+    launches = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
+    return busy / spp, launches / spp, wall / spp, seen, fused
+
+
+def phase8_scenes(device):
+    """Phase 8's scenes → {name: (scene, spp of the sharded and dense
+    renders, the wrappers whose launches its paths must show)}."""
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh
+
+    return {
+        "cornell": (cornell_box(W, H, device=device), SPP_OFF,
+                    ("closest_bruteforce", "anyhit_bruteforce")),
+        "mesh": (cornell_box_mesh(W, H, subdiv=MESH_SUBDIV, use_bvh=True, device=device),
+                 SHARD_MESH_SPP,
+                 ("bvh_closest_raw", "bvh_any_raw")),
+    }
+
+
+def shows_kernels(name: str, seen: dict) -> bool:
+    """Does a trace of scene ``name``'s path hold its kernels: 2 and 3 for
+    the Cornell box, 4 (closest and any-hit) for the mesh box?"""
+    keys = ("closest", "anyhit") if name == "cornell" else ("bvh_closest", "bvh_anyhit")
+    return all(seen[k] > 0 for k in keys)
+
+
+def went_through(got: dict, counted) -> bool:
+    """Did a run launch every wrapper of ``counted`` and no fused kernel?"""
+    return (all(got[c] > 0 for c in counted) and got["trace_paths_fused"] == 0
+            and got["bounce_fused"] == 0)
+
+
+def sharded_step_run(MK, scene, mesh, zero, read):
+    """``ADAM_STEPS + 1`` Adam steps of bench.py's albedo step (fwd_bwd
+    leg), sharded over ``mesh``, from the scene's albedo → dict of the
+    first step's averaged loss and gradient (the gradient Adam applied) and
+    launches, the losses of every step, fwd+bwd Mpaths/s over the last
+    ``ADAM_STEPS`` steps, and the seconds of one all-reduce of the step's
+    loss and gradient."""
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.models.differentiable import init_params, inject_params
+    from cuda_optix_pathtracing_tpu_torch.parallel.render import mean_over_ranks, train_step_sharded
+
+    cfg = MK.MegakernelConfig(max_depth=DEPTH, remat=True)
+    target = torch.zeros((H, W, 3), device=scene.device)
+    params = init_params(scene, ("albedo",))
+    step = train_step_sharded(torch.optim.Adam(params.values(), lr=5e-2),
+                              lambda p: inject_params(scene, p), cfg, W, H, GRAD_SPP, mesh)
+    zero()
+    losses = [float(step(params, target, 0))]
+    got = read()
+    grad = params["albedo"].grad.detach().clone()
+    t0 = time.perf_counter()
+    for _ in range(ADAM_STEPS):
+        losses.append(float(step(params, target, 0)))
+    dt = time.perf_counter() - t0
+    bufs = [torch.zeros((), device=scene.device), grad]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean_over_ranks(bufs, mesh)
+    torch.cuda.synchronize()
+    t_ar = time.perf_counter() - t0
+    return {"loss": losses[0], "grad": grad, "losses": losses, "launches": got,
+            "mpaths": W * H * GRAD_SPP * ADAM_STEPS / dt / 1e6, "allreduce_s": t_ar}
+
+
+def device_trace(fn):
+    """One run of ``fn`` under the profiler, device activity only (cheaper
+    to trace than the host's ops) → (device-busy seconds, device kernels,
+    the launches of kernels 2, 3 and 4, the fused and single-bounce
+    kernels seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    seen = {k: sum(e.count for e in rows if is_kernel(e.key, KERNEL_NAMES[k]))
+            for k in ("closest", "anyhit", "bvh_closest", "bvh_anyhit")}
+    fused = sorted({e.key[:60] for e in rows if "pt_fused" in e.key or "pt_bounce" in e.key})
+    return busy, sum(e.count for e in rows), seen, fused
+
+
+def phase8_rank(rank: int, port: int, out_dir: str) -> int:
+    """One of phase 8's two ranks (a process of its own, sharing the card
+    with the other; gloo): (b) ``render_multihost`` of both scenes with
+    the counts zeroed just before and read just after, a traced spp of the
+    rank's block, the gather's time; (c) the sharded step. Writes its
+    figures to ``<out_dir>/rank<r>.pt``, and rank 0 the films and the
+    gradient."""
+    import torch
+    import torch.distributed as dist
+
+    from cuda_optix_pathtracing_tpu_torch._device import resolve_device
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.parallel.distributed import (
+        gather_film,
+        init_distributed,
+        render_multihost,
+    )
+    from cuda_optix_pathtracing_tpu_torch.parallel.render import make_mesh, render_sharded
+
+    torch.set_num_threads(2)
+    init_distributed(f"localhost:{port}", 2, rank, device="cuda")
+    _, zero, read = launch_counters()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device())}
+    try:
+        mesh = make_mesh()
+        cfg = MK.MegakernelConfig(max_depth=DEPTH, remat=False)
+        scenes = phase8_scenes(resolve_device("cuda"))
+        for name, (scene, spp, _) in scenes.items():
+            render_sharded(scene, cfg, W, H, 1, mesh)  # warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            zero()
+            t0 = time.perf_counter()
+            film = render_multihost(scene, cfg, W, H, spp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read()
+            block = render_sharded(scene, cfg, W, H, 1, mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            gather_film(block, mesh)
+            torch.cuda.synchronize()
+            t_gather = time.perf_counter() - t0
+            dist.barrier()
+            trace = path_trace(lambda: render_sharded(scene, cfg, W, H, 1, mesh), 1)
+            out[name] = {"wall": wall, "launches": got, "gather_s": t_gather, "trace": trace}
+            if rank == 0:
+                out[name]["film"] = (film.mean.cpu(), film.m2.cpu(), float(film.n))
+        dist.barrier()
+        step = sharded_step_run(MK, scenes["cornell"][0], mesh, zero, read)
+        step["grad"] = step["grad"].cpu()
+        out["step"] = step
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase8_cli(rank: int, port: int, out: str) -> int:
+    """One of phase 8 (g)'s two CLI processes: ``cli.main`` in
+    multi-process mode with the counts zeroed just before and printed as a
+    JSON line just after."""
+    from cuda_optix_pathtracing_tpu_torch.utils import cli
+
+    _, zero, read = launch_counters()
+    zero()
+    rc = cli.main(phase8_cli_args(out) + ["--coordinator", f"localhost:{port}",
+                                          "--num-processes", "2", "--process-id", str(rank)])
+    print(json.dumps({"rank": rank, "launches": read()}))
+    return rc
+
+
+def phase8_cli_args(out: str):
+    return ["--scene", "cornell", "--width", str(CLI_MP_SIZE), "--height", str(CLI_MP_SIZE),
+            "--spp", str(CLI_MP_SPP), "--log-level", "warn", "--out", out]
+
+
+def run_workers(cmds, timeout: float):
+    """Start every command at once (this script's directory as the working
+    directory), wait for all → their outputs; fails if one fails or
+    outlasts ``timeout`` seconds, and kills what is left."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"worker {p.args} failed ({p.returncode}):\n{o[-6000:]}")
+    return outs
+
+
+def parallel_wavefront_phase(MK, zero, read, tag: str) -> None:
+    """Phase 8: the sharded render and step (``parallel/``), the dense and
+    pool wavefronts (``models/wavefront.py``), the NaN guard and the CLI's
+    multi-process mode on the card, every path through kernels 2 and 3
+    (Cornell) or 4 (mesh), no fused kernel, no CPU fallback."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from cuda_optix_pathtracing_tpu_torch._device import resolve_device
+    from cuda_optix_pathtracing_tpu_torch.entry import free_port
+    from cuda_optix_pathtracing_tpu_torch.models.differentiable import init_params, inject_params, make_loss
+    from cuda_optix_pathtracing_tpu_torch.models.wavefront import (
+        WavefrontConfig,
+        render_pool_wavefront,
+        render_wavefront,
+    )
+    from cuda_optix_pathtracing_tpu_torch.parallel.distributed import (
+        gather_film,
+        init_distributed,
+        render_multihost,
+    )
+    from cuda_optix_pathtracing_tpu_torch.parallel.render import make_mesh, render_sharded
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box
+    from cuda_optix_pathtracing_tpu_torch.utils import cli
+
+    t_phase = time.perf_counter()
+    print(f"phase 8: sharded render and step, wavefronts, NaN guard, multi-process CLI ({W}x{H}, "
+          f"depth {DEPTH}) {tag}")
+    dev = resolve_device("cuda")
+    scenes = phase8_scenes(dev)
+    cfg = MK.MegakernelConfig(max_depth=DEPTH, remat=False)
+    script = os.path.abspath(__file__)
+
+    # (a) world 1, NCCL, in this process
+    rank = init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    check(rank == 0 and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "(a) init_distributed: a group of 1 rank on the NCCL backend")
+    mesh1 = make_mesh()
+    films_a, walls_a, refs = {}, {}, {}
+    for name, (scene, spp, counted) in scenes.items():
+        refs[name] = unsharded_film(scene, cfg, spp)
+        zero()
+        t0 = time.perf_counter()
+        film = render_multihost(scene, cfg, W, H, spp)
+        torch.cuda.synchronize()
+        walls_a[name] = time.perf_counter() - t0
+        got = read()
+        check(went_through(got, counted),
+              f"(a) {name}: render_multihost {W}x{H}x{spp} through {', '.join(counted)} "
+              f"({', '.join(str(got[c]) for c in counted)} launches), no fused kernel")
+        check(torch.equal(film.mean.reshape(-1, 3), refs[name].mean)
+              and torch.equal(film.m2.reshape(-1, 3), refs[name].m2) and float(film.n) == spp,
+              f"(a) {name}: the world-1 film equals the unsharded Welford loop bit for bit")
+        films_a[name] = film
+        busy, launches, _, seen, fused = path_trace(
+            lambda: render_sharded(scene, cfg, W, H, 1, mesh1), 1)
+        check(not fused and shows_kernels(name, seen),
+              f"(a) {name}: the profiler's kernels in one traced spp: {seen}; no pt_fused_* or "
+              f"pt_bounce_*")
+        wall_spp = walls_a[name] / spp
+        print(f"  (a) {name}: {walls_a[name]:.3f} s, {W * H * spp / walls_a[name] / 1e6:.4f} "
+              f"Mpaths/s (host clock around render_multihost); traced spp: {launches:.0f} host "
+              f"launches, device busy {1e3 * busy:.3f} ms ({100 * busy / wall_spp:.1f} % of the "
+              f"untraced {1e3 * wall_spp:.3f} ms) {tag}")
+    block = render_sharded(scenes["cornell"][0], cfg, W, H, 1, mesh1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gather_film(block, mesh1)
+    torch.cuda.synchronize()
+    print(f"  (a) gather_film of a {W}x{H} film at world 1 (NCCL all-gather of mean and m2): "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms {tag}")
+
+    # (c) at world 1: the step against the unsharded make_loss
+    cornell = scenes["cornell"][0]
+    cfg_g = MK.MegakernelConfig(max_depth=DEPTH, remat=True)
+    params = init_params(cornell, ("albedo",))
+    ref_loss = make_loss(cornell, cfg_g, W, H, GRAD_SPP, torch.zeros((H, W, 3), device=dev))(params)
+    ref_loss.backward()
+    ref_loss, g_ref = float(ref_loss.detach()), params["albedo"].grad.detach().clone()
+
+    def hold_step(label, res):
+        g = res["grad"].to(g_ref.device)
+        atol = 1e-4 * float(g_ref.abs().max())
+        check(math.isclose(res["loss"], ref_loss, rel_tol=SHARD_LOSS_RTOL),
+              f"(c) {label}: loss {res['loss']:.9g} against make_loss's {ref_loss:.9g} "
+              f"(rel {abs(res['loss'] - ref_loss) / ref_loss:.2e} <= {SHARD_LOSS_RTOL:g})")
+        check(bool(torch.isfinite(g).all()) and torch.allclose(g, g_ref, rtol=SHARD_GRAD_RTOL, atol=atol),
+              f"(c) {label}: averaged gradient within rtol {SHARD_GRAD_RTOL:g}, atol 1e-4·max|g| "
+              f"of make_loss's (max abs diff {float((g - g_ref).abs().max()):.3e}, max|g| "
+              f"{float(g_ref.abs().max()):.3e})")
+        ls = res["losses"]
+        check(all(b < a for a, b in zip(ls, ls[1:])),
+              f"(c) {label}: {ADAM_STEPS} Adam steps lower the loss: "
+              + " → ".join(f"{v:.6g}" for v in ls))
+
+    res1 = sharded_step_run(MK, cornell, mesh1, zero, read)
+    check(went_through(res1["launches"], scenes["cornell"][2]),
+          f"(c) world 1: the step went through kernels 2 and 3 ({res1['launches']})")
+    hold_step("world 1", res1)
+    print(f"  (c) world 1: fwd+bwd {res1['mpaths']:.4f} Mpaths/s over {ADAM_STEPS} Adam steps "
+          f"({W}x{H}x{GRAD_SPP}, sample by sample); all-reduce of the loss and gradient "
+          f"(NCCL) {1e3 * res1['allreduce_s']:.3f} ms {tag}")
+    dist.destroy_process_group()
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 8)")
+
+    # (b), (c) at world 2: two processes share the card (gloo)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        run_workers([[sys.executable, script, "--phase8-rank", str(r), str(port), tmp]
+                     for r in range(2)], WORKER_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    check(all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
+          f"(b) two ranks on one card ({ranks[0]['device']}) chose gloo")
+    for name, (scene, spp, counted) in scenes.items():
+        mean, m2, n = ranks[0][name]["film"]
+        check(all(went_through(r[name]["launches"], counted) for r in ranks),
+              f"(b) {name}: each rank's render_multihost through {', '.join(counted)} "
+              f"({[[r[name]['launches'][c] for c in counted] for r in ranks]} launches), no "
+              f"fused kernel")
+        check(torch.equal(mean.to(dev), films_a[name].mean)
+              and torch.equal(m2.to(dev), films_a[name].m2)
+              and n == spp,
+              f"(b) {name}: the gathered world-2 film equals (a)'s bit for bit")
+        agg = W * H * spp / max(r[name]["wall"] for r in ranks) / 1e6
+        mp_a = W * H * spp / walls_a[name] / 1e6
+        for k, r in enumerate(ranks):
+            busy, launches, _, seen, fused = r[name]["trace"]
+            check(not fused and shows_kernels(name, seen),
+                  f"(b) {name} rank {k}: traced spp of its block: {seen}, no fused kernel")
+            print(f"  (b) {name} rank {k}: {r[name]['wall']:.3f} s; traced spp: {launches:.0f} host "
+                  f"launches, device busy {1e3 * busy:.3f} ms; gather_film (gloo, through the "
+                  f"host) {1e3 * r[name]['gather_s']:.3f} ms {tag}")
+        print(f"  (b) {name}: aggregate {agg:.4f} Mpaths/s at world 2 (the slower rank's wall) "
+              f"against {mp_a:.4f} at world 1 ({agg / mp_a:.3f}x) {tag}")
+    for k, r in enumerate(ranks):
+        hold_step(f"world 2, rank {k}", r["step"])
+        print(f"  (c) world 2, rank {k}: fwd+bwd {r['step']['mpaths']:.4f} Mpaths/s of the whole "
+              f"image; all-reduce (gloo, through the host) {1e3 * r['step']['allreduce_s']:.3f} "
+              f"ms {tag}")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 8)")
+
+    # (d) the dense wavefront against render(fused="off"), linear order
+    kw = dict(max_depth=DEPTH, pixel_order="linear")
+    for name, (scene, spp, counted) in scenes.items():
+        t0 = time.perf_counter()
+        ref = MK.render(scene, W, H, spp, cfg=MK.MegakernelConfig(fused="off", **kw), kspp=spp)
+        torch.cuda.synchronize()
+        dt_ref = time.perf_counter() - t0
+        zero()
+        t0 = time.perf_counter()
+        film = render_wavefront(scene, W, H, spp, cfg=WavefrontConfig(**kw), kspp=spp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read()
+        closest = got[counted[0]]
+        check(went_through(got, counted),
+              f"(d) {name}: render_wavefront {W}x{H}x{spp} through {', '.join(counted)} "
+              f"({', '.join(str(got[c]) for c in counted)} launches), no fused kernel")
+        check(torch.equal(film.mean, ref.mean) and torch.equal(film.m2, ref.m2),
+              f"(d) {name}: the dense wavefront's film equals render(fused='off', "
+              f"pixel_order='linear')'s bit for bit")
+        _, _, seen, fused = device_trace(
+            lambda: render_wavefront(scene, W, H, 1, cfg=WavefrontConfig(**kw)))
+        check(not fused and shows_kernels(name, seen),
+              f"(d) {name}: traced spp: {seen}, no fused kernel")
+        print(f"  (d) {name}: the loop stopped at depth {closest / spp:g} of {DEPTH} (closest-hit "
+              f"launches per spp); {W * H * spp / dt / 1e6:.4f} Mpaths/s against "
+              f"render(fused='off')'s {W * H * spp / dt_ref / 1e6:.4f} (host clock) {tag}")
+
+    # (e) the pool wavefront against render(fused="off") at 16 spp
+    for name, (scene, _, counted) in scenes.items():
+        t0 = time.perf_counter()
+        ref = MK.render(scene, W, H, POOL_SPP, cfg=MK.MegakernelConfig(max_depth=DEPTH, fused="off"),
+                        kspp=POOL_SPP)
+        torch.cuda.synchronize()
+        dt_ref = time.perf_counter() - t0
+        zero()
+        t0 = time.perf_counter()
+        film = render_pool_wavefront(scene, W, H, POOL_SPP, cfg=WavefrontConfig(max_depth=DEPTH))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read()
+        iters = got[counted[0]]
+        dm = float((film.mean - ref.mean).abs().max())
+        d2 = float((film.m2 - ref.m2).abs().max())
+        check(went_through(got, counted),
+              f"(e) {name}: render_pool_wavefront {W}x{H}x{POOL_SPP} (pool {min(W * H, 1 << 16)}) "
+              f"through {', '.join(counted)} ({', '.join(str(got[c]) for c in counted)} "
+              f"launches), no fused kernel")
+        check(dm <= POOL_MEAN_ATOL and d2 <= POOL_M2_ATOL and float(film.n) == POOL_SPP,
+              f"(e) {name}: the pool's film within {POOL_MEAN_ATOL:g} (mean, max abs diff "
+              f"{dm:.3e}) and {POOL_M2_ATOL:g} (M2, {d2:.3e}) of render(fused='off')'s")
+        t0 = time.perf_counter()
+        render_pool_wavefront(scene, W, H, POOL_TRACE_SPP, cfg=WavefrontConfig(max_depth=DEPTH))
+        torch.cuda.synchronize()
+        dt_small = time.perf_counter() - t0
+        busy, n_kern, seen, fused = device_trace(lambda: render_pool_wavefront(
+            scene, W, H, POOL_TRACE_SPP, cfg=WavefrontConfig(max_depth=DEPTH)))
+        check(busy > 0.0 and not fused and shows_kernels(name, seen),
+              f"(e) {name}: a traced pool run at {POOL_TRACE_SPP} spp: {seen}, no fused kernel")
+        print(f"  (e) {name}: {iters} iterations ({iters * min(W * H, 1 << 16) / (W * H * POOL_SPP):.3f} "
+              f"pool-bounces per path); {dt:.3f} s, {W * H * POOL_SPP / dt / 1e6:.4f} Mpaths/s "
+              f"against the dense render(fused='off')'s {W * H * POOL_SPP / dt_ref / 1e6:.4f} "
+              f"in this call; traced run at {POOL_TRACE_SPP} spp: {n_kern} device kernels "
+              f"({n_kern / POOL_TRACE_SPP:.0f} per spp, one per kernel launch), device busy "
+              f"{1e3 * busy:.3f} ms ({100 * busy / dt_small:.1f} % of the untraced "
+              f"{1e3 * dt_small:.1f} ms) {tag}")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 8)")
+
+    # (f) the NaN guard
+    small = cornell_box(NAN_SIZE, NAN_SIZE, device=dev)
+    cfg_dbg = MK.MegakernelConfig(max_depth=DEPTH, fused="off", debug=True)
+    zero()
+    film = MK.render(small, NAN_SIZE, NAN_SIZE, 2, cfg=cfg_dbg, kspp=1)
+    got = read()
+    check(bool(torch.isfinite(film.mean).all()) and went_through(got, scenes["cornell"][2]),
+          f"(f) NaN guard quiet on a clean {NAN_SIZE}x{NAN_SIZE} Cornell render (kernels 2 and 3)")
+    albedo = small.materials.albedo.clone()
+    albedo[0, 0] = float("nan")
+    try:
+        MK.render(inject_params(small, {"albedo": albedo}), NAN_SIZE, NAN_SIZE, 2, cfg=cfg_dbg, kspp=1)
+        raised = "nothing"
+    except FloatingPointError as e:
+        raised = str(e)
+    check(raised.startswith("NaN guard"), f"(f) a poisoned albedo raises: {raised}")
+    unchecked = MK.render(inject_params(small, {"albedo": albedo}), NAN_SIZE, NAN_SIZE, 2,
+                          cfg=dataclasses.replace(cfg_dbg, debug=False), kspp=1)
+    check(not bool(torch.isfinite(unchecked.mean).all()),
+          "(f) without debug the poisoned film comes back unchecked")
+    syncs = {}
+    for on in (False, True):
+        cfg_on = dataclasses.replace(cfg_dbg, debug=on)
+        _, _, n_launch, syncs[on], _ = traced_render(
+            lambda: MK.render(small, NAN_SIZE, NAN_SIZE, 1, cfg=cfg_on, kspp=1), 1, {})
+    check(syncs[True] - syncs[False] == 1,
+          f"(f) the guard costs one stream sync a batch, none when off: {syncs[True]:g} against "
+          f"{syncs[False]:g} syncs per one-sample batch ({n_launch:g} kernel launches)")
+
+    # (g) the CLI in multi-process mode, two processes on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        outs = run_workers([[sys.executable, script, "--phase8-cli", str(r), str(port),
+                             os.path.join(tmp, f"multi{r}.png")] for r in range(2)],
+                           WORKER_TIMEOUT_S)
+        counts = [json.loads([ln for ln in o.splitlines() if ln.startswith('{"rank"')][-1])
+                  ["launches"] for o in outs]
+        zero()
+        rc = cli.main(phase8_cli_args(os.path.join(tmp, "single.png"))
+                      + ["--coordinator", f"localhost:{free_port()}", "--num-processes", "1"])
+        got = read()
+        check(rc == 0 and all(went_through(c, scenes["cornell"][2]) for c in counts + [got]),
+              f"(g) the CLI's ranks (and the one-process run) went through kernels 2 and 3, no "
+              f"fused kernel: {[[c['closest_bruteforce'], c['anyhit_bruteforce']] for c in counts]} "
+              f"and {[got['closest_bruteforce'], got['anyhit_bruteforce']]} launches")
+        same = all(open(os.path.join(tmp, f"multi0{s}.png"), "rb").read()
+                   == open(os.path.join(tmp, f"single{s}.png"), "rb").read()
+                   for s in ("", "_sqrt_mse"))
+        check(same and not os.path.exists(os.path.join(tmp, "multi1.png")),
+              f"(g) two-process CLI ({CLI_MP_SIZE}x{CLI_MP_SIZE}, {CLI_MP_SPP} spp): rank 0's PNGs "
+              f"byte-equal to a one-process run's (--num-processes 1); rank 1 wrote none")
+    check(not dist.is_initialized(), "no process group left open")
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s {tag}")
+
+
 def main() -> int:
     import torch
 
@@ -1598,17 +2151,7 @@ def main() -> int:
 
     # ---- 3. the main paths -------------------------------------------------
     print("phase 3: main paths")
-    counters = (trace_paths_fused, closest_bruteforce, anyhit_bruteforce,
-                BV.bvh_closest_raw, BV.bvh_any_raw, MKC.bounce_fused)
-
-    def zero():
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
-
-    def read():
-        torch.cuda.synchronize()
-        return {c.__name__: c.launches for c in counters}
+    counters, zero, read = launch_counters()
 
     main_scene = cornell_box(W, H)
     zero()
@@ -1905,17 +2448,7 @@ def main() -> int:
         "fused_bvh_halton": (lambda: trace_paths_fused(mesh_main, *sorted_rays["halton"],
                                                        max_depth=DEPTH, sampler="halton"), 1),
     }
-    kernel_names = {
-        "fused": ("::pt_fused_kernel<", "BruteGeo", "HashRng>"),
-        "fused_halton": ("::pt_fused_kernel<", "BruteGeo", "HaltonRng>"),
-        "closest": "::closest_kernel(",
-        "anyhit": "::anyhit_kernel(",
-        "bvh_closest": "::bvh_closest_kernel(",
-        "bvh_anyhit": "::bvh_anyhit_kernel(",
-        "fused_bvh": ("::pt_fused_bvh_kernel<", "HashRng>"),
-        "fused_bvh_halton": ("::pt_fused_bvh_kernel<", "HaltonRng>"),
-        "bounce": ("::pt_bounce_kernel<", "HashRng>"),
-    }
+    kernel_names = KERNEL_NAMES
     ms = {k: kernel_ms(fn, 4 if per > 1 else 20, kernel_names[k], per)
           for k, (fn, per) in calls.items()}
     # kernel 1 at 1,048,576 paths (16 spp in one launch, as spp_per_pass=16
@@ -2296,6 +2829,7 @@ def main() -> int:
     gradients_phase(MK, zero, read, tag, kernel_names)
     scene_files_phase(MK, zero, read, tag, kernel_names)
     lights_instancing_phase(MK, zero, read, tag, kernel_names)
+    parallel_wavefront_phase(MK, zero, read, tag)
     print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2304,4 +2838,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # phase 8 starts this script again as its worker processes
+    if sys.argv[1:2] == ["--phase8-rank"]:
+        sys.exit(phase8_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--phase8-cli"]:
+        sys.exit(phase8_cli(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -137,6 +137,10 @@ class MegakernelConfig:
     sort_rays: str = "auto"  # "auto" | "on" | "off": sort rays by
     # direction octant | origin Morton before the BVH kernels (kernel
     # route only); auto = on whenever the scene has a BVH
+    debug: bool = False  # NaN guard: render() checks the film for
+    # non-finite values after every progressive batch and raises
+    # FloatingPointError naming the batch and the count (one host read a
+    # batch, only when on)
 
 
 def _validate(cfg: MegakernelConfig) -> None:
@@ -483,6 +487,13 @@ def init_path_state(n: int, o, d, cone_spread=None, tree: bool = False) -> PathS
         cone_s=None if cone_spread is None else cone_spread.expand(n).clone(),
         prev_n=-d if tree else None,  # unused while prev_delta (weight 1)
     )
+
+
+def camera_path_state(scene: Scene, cfg, o, d) -> PathState:
+    """Fresh paths on camera rays (o, d): the pixel's ray cone in textured
+    scenes, ``prev_n`` with a light tree."""
+    spread = None if scene.textures is None else pixel_cone_spread(scene.cam_from_raster)
+    return init_path_state(o.shape[0], o, d, spread, tree=_tree_on(cfg, scene))
 
 
 def _tree_on(cfg, scene) -> bool:
@@ -938,8 +949,7 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
     if torch.is_tensor(sample):
         sample = sample.to(dev)
     sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
-    spread = None if scene.textures is None else pixel_cone_spread(scene.cam_from_raster)
-    state = init_path_state(o.shape[0], o, d, spread, tree=_tree_on(cfg, scene))
+    state = camera_path_state(scene, cfg, o, d)
 
     def bounces(depths, state):
         for depth in depths:
@@ -987,9 +997,9 @@ def _use_morton(cfg, scene, width, height) -> bool:
     return False
 
 
-def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
-    """Render ``nspp`` samples for every pixel → (nspp, H, W, 3) radiance,
-    or (H, W, 3) when nspp == 1. The scene's device is the render's."""
+def camera_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
+    """Camera rays of ``nspp`` samples of every pixel, in the render's
+    pixel order → (px, py, sample, o, d, filter weight or None, morton)."""
     dev = scene.device
     pix = pixel_centers(width, height, dev)
     morton = _use_morton(cfg, scene, width, height)
@@ -1011,6 +1021,26 @@ def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, samp
     else:
         p_film = pix + torch.stack([u1, u2], dim=-1)
     o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
+    return px, py, sample, o, d, fw, morton
+
+
+def batch_image(radiance, fw, morton: bool, width, height, nspp: int = 1):
+    """Radiance of a ``camera_batch`` → (nspp, H, W, 3) image, or (H, W,
+    3) when nspp == 1: weighted by the filter, back in raster order."""
+    if fw is not None:
+        radiance = radiance * fw[:, None]
+    if morton:
+        img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
+        return img if nspp > 1 else img[0]
+    if nspp > 1:
+        return radiance.reshape(nspp, height, width, 3)
+    return radiance.reshape(height, width, 3)
+
+
+def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
+    """Render ``nspp`` samples for every pixel → (nspp, H, W, 3) radiance,
+    or (H, W, 3) when nspp == 1. The scene's device is the render's."""
+    px, py, sample, o, d, fw, morton = camera_batch(scene, cfg, width, height, sample, nspp)
     if cfg.fused == "auto":
         cfg = resolve_fused(scene, cfg)
     if cfg.fused == "on":
@@ -1022,15 +1052,8 @@ def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, samp
             seed=cfg.seed, sampler=cfg.sampler,
         )
     else:
-        radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=dev)
-    if fw is not None:
-        radiance = radiance * fw[:, None]
-    if morton:
-        img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
-        return img if nspp > 1 else img[0]
-    if nspp > 1:
-        return radiance.reshape(nspp, height, width, 3)
-    return radiance.reshape(height, width, 3)
+        radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=scene.device)
+    return batch_image(radiance, fw, morton, width, height, nspp)
 
 
 def render_progressive(scene: Scene, film: Film, cfg: MegakernelConfig, width, height, sample_offset, kspp, spp_per_pass: int = 1, device="cuda"):
@@ -1068,6 +1091,13 @@ def render(scene: Scene, width: int, height: int, spp: int, cfg: MegakernelConfi
             scene, film, cfg, width, height, done, batch, per_pass, device=dev
         )
         done += batch
+        if cfg.debug:
+            bad = int(torch.count_nonzero(~torch.isfinite(film.mean)))
+            if bad:
+                raise FloatingPointError(
+                    f"NaN guard: film holds {bad} non-finite values after "
+                    f"sample batch ending at spp={done}"
+                )
         if progress_cb is not None:
             progress_cb(film, done)
     return film

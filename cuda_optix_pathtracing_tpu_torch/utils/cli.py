@@ -10,14 +10,19 @@ a scene file: ``.pbrt`` (``scene/pbrt.py``) or JSON (``scene/parser.py``),
 e.g. ``--scene scenes/scene_test.json``. A file sets the film size; its
 sample count replaces the default ``--spp``, and a JSON file's
 ``max-depth`` replaces ``--max-depth``.
+
+Multi-process: with ``--coordinator host:port --num-processes N
+--process-id R`` (or under ``torchrun``, whose environment fills in what
+is left out) each process renders its block of pixels
+(``parallel.distributed.render_multihost``), the film is assembled on
+every rank and rank 0 writes the PNGs. That branch renders the whole
+``--spp`` at once: no checkpoint resume, no partial images.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import sys
-import time
 
 
 def main(argv=None) -> int:
@@ -25,20 +30,41 @@ def main(argv=None) -> int:
 
     cfg = parse_args(argv)
 
+    import torch
+
     from .._device import resolve_device
+    from .logging import get_logger
+
+    log = get_logger(level=cfg.log_level)
+    device = resolve_device(cfg.device)
+    multi = bool(cfg.coordinator or cfg.num_processes)
+    rank = 0
+    if multi:
+        from ..parallel.distributed import init_distributed
+
+        rank = init_distributed(
+            cfg.coordinator or None,
+            cfg.num_processes or None,
+            cfg.process_id if cfg.process_id >= 0 else None,
+            device=device,
+        )
+    try:
+        return _render(cfg, device, log, multi, rank, DEFAULT_SPP)
+    finally:
+        if multi and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _render(cfg, device, log, multi: bool, rank: int, default_spp: int) -> int:
+    import torch
+
     from ..models.megakernel import MegakernelConfig, render
     from ..ops.bsdf import mat_features_from_table
     from ..ops.film import film_sqrt_mse, srgb_encode, to_uint8
     from ..scene import cornell_box, cornell_box_mesh
     from .checkpoint import load_film, save_film
     from .imageio import write_png
-
-    logging.basicConfig(
-        level=getattr(logging, cfg.log_level.upper()),
-        format="%(asctime)s %(levelname)s %(message)s",
-    )
-    log = logging.getLogger("dtpt-torch")
-    device = resolve_device(cfg.device)
+    from .timers import AvgAndTotalTimer
 
     if cfg.scene == "cornell":
         scene = cornell_box(cfg.width, cfg.height, device=device)
@@ -49,14 +75,14 @@ def main(argv=None) -> int:
 
         scene, meta = load_pbrt(cfg.scene, device=device)
         cfg.width, cfg.height = meta.width, meta.height
-        if meta.spp and cfg.spp == DEFAULT_SPP:
+        if meta.spp and cfg.spp == default_spp:
             cfg.spp = meta.spp
     else:
         from ..scene.parser import load_scene
 
         scene, parsed = load_scene(cfg.scene, device=device)
         cfg.width, cfg.height = parsed.width, parsed.height
-        if parsed.spp and cfg.spp == DEFAULT_SPP:
+        if parsed.spp and cfg.spp == default_spp:
             cfg.spp = parsed.spp
         if parsed.max_depth:
             cfg.max_depth = parsed.max_depth
@@ -76,8 +102,11 @@ def main(argv=None) -> int:
         log.info("resumed film at %d spp from %s", int(film.n), cfg.checkpoint)
 
     npix = cfg.width * cfg.height
-    t_start = time.perf_counter()
-    t_last = [t_start, int(film.n) if film is not None else 0]
+    timer = AvgAndTotalTimer().start()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def write_outputs(f, out_path):
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
@@ -88,17 +117,35 @@ def main(argv=None) -> int:
             to_uint8(srgb_encode(film_sqrt_mse(f))).cpu().numpy(),
         )
 
-    def on_batch(f, done):
-        if device.type == "cuda":
-            import torch
+    if multi:
+        # pixels sharded over the ranks, the film assembled on every rank;
+        # rank 0 writes the outputs
+        if film is not None:
+            log.warning(
+                "--checkpoint resume is not supported in multi-process mode; "
+                "re-rendering %d spp from scratch", cfg.spp,
+            )
+        if cfg.save_partial:
+            log.warning(
+                "--save-partial / kspp batching is not supported in "
+                "multi-process mode; only the final image is written"
+            )
+        from ..parallel.distributed import render_multihost
 
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        rate = npix * (done - t_last[1]) / max(now - t_last[0], 1e-9) / 1e6
-        t_last[:] = [now, done]
+        film = render_multihost(scene, mk, cfg.width, cfg.height, cfg.spp, device=device)
+        sync()
+        timer.lap()
+        if rank == 0:
+            write_outputs(film, cfg.out)
+            log.info("wrote %s (total %.1fs)", cfg.out, timer.total)
+        return 0
+
+    def on_batch(f, done):
+        sync()
+        timer.lap()
         log.info(
-            "spp %d/%d  %.2f Mpaths/s (this batch, host clock on %s)  total %.1fs",
-            done, cfg.spp, rate, device, now - t_start,
+            "spp %d/%d  %.2f Mpaths/s (ema, host clock on %s)  total %.1fs",
+            done, cfg.spp, npix * cfg.kspp / max(timer.ema, 1e-9) / 1e6, device, timer.total,
         )
         if cfg.save_partial:
             base, ext = os.path.splitext(cfg.out)
@@ -111,7 +158,7 @@ def main(argv=None) -> int:
         cfg=mk, kspp=cfg.kspp, film=film, progress_cb=on_batch, device=device,
     )
     write_outputs(film, cfg.out)
-    log.info("wrote %s (total %.1fs)", cfg.out, time.perf_counter() - t_start)
+    log.info("wrote %s (total %.1fs)", cfg.out, timer.total)
     return 0
 
 

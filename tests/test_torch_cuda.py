@@ -774,3 +774,73 @@ def test_kernel_route_gradients_match_plain(dev, scene, mesh, case):
         gk, gp = grads["auto"][key].grad, grads["torch"][key].grad
         assert bool(gp.any()) and bool(torch.isfinite(gk).all())
         torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-9)
+
+
+# ---- slice 6: sharded render, wavefronts, NaN guard ------------------------
+
+
+def test_sharded_blocks_match_one_block(dev, scene):
+    """Two shard blocks of a Cornell render at 32², concatenated, equal the
+    one-block render bit for bit (kernels 2 and 3, no fused kernel)."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+    from cuda_optix_pathtracing_tpu_torch.parallel.render import Mesh, render_sharded
+
+    cfg = MegakernelConfig(max_depth=3, remat=False)
+    before = (IC.closest_bruteforce.launches, trace_paths_fused.launches)
+    one = render_sharded(scene, cfg, 32, 32, 2, Mesh(1, 0))
+    two = [render_sharded(scene, cfg, 32, 32, 2, Mesh(2, k)) for k in range(2)]
+    torch.cuda.synchronize()
+    assert IC.closest_bruteforce.launches - before[0] == 3 * 2 * 3
+    assert trace_paths_fused.launches == before[1]
+    assert torch.equal(torch.cat([b.mean for b in two]), one.mean)
+    assert torch.equal(torch.cat([b.m2 for b in two]), one.m2)
+    assert bool(torch.isfinite(one.mean).all()) and float(one.mean.mean()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["cornell", "mesh"])
+def test_dense_wavefront_matches_unfused_render(dev, scene, mesh, case):
+    """The dense wavefront's film equals ``render(fused="off")``'s bit for
+    bit at 32² (kernels 2 and 3, or the sorted route over kernel 4)."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig, render
+    from cuda_optix_pathtracing_tpu_torch.models.wavefront import WavefrontConfig, render_wavefront
+
+    sc = scene if case == "cornell" else mesh
+    kw = dict(max_depth=4, pixel_order="linear")
+    a = render(sc, 32, 32, 2, cfg=MegakernelConfig(fused="off", **kw), kspp=2)
+    b = render_wavefront(sc, 32, 32, 2, cfg=WavefrontConfig(**kw), kspp=2)
+    assert torch.equal(a.mean, b.mean) and torch.equal(a.m2, b.m2)
+
+
+def test_pool_wavefront_matches_render(dev, scene):
+    """The regenerating pool at 32² (512 lanes) within the reference's bar
+    of ``render(fused="off")`` (mean 3e-5, M2 3e-4)."""
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig, render
+    from cuda_optix_pathtracing_tpu_torch.models.wavefront import (
+        WavefrontConfig,
+        render_pool_wavefront,
+    )
+    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+
+    a = render(scene, 32, 32, 4, cfg=MegakernelConfig(max_depth=4, fused="off"), kspp=4)
+    before = IC.anyhit_bruteforce.launches
+    b = render_pool_wavefront(scene, 32, 32, 4, cfg=WavefrontConfig(max_depth=4), pool=512)
+    torch.cuda.synchronize()
+    assert IC.anyhit_bruteforce.launches > before
+    torch.testing.assert_close(b.mean, a.mean, rtol=0, atol=3e-5)
+    torch.testing.assert_close(b.m2, a.m2, rtol=0, atol=3e-4)
+    assert float(b.n) == 4
+
+
+def test_nan_guard_on_the_card(dev, scene):
+    from cuda_optix_pathtracing_tpu_torch.models.differentiable import inject_params
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig, render
+
+    cfg = MegakernelConfig(max_depth=2, fused="off", debug=True)
+    film = render(scene, 32, 32, 1, cfg=cfg, kspp=1)
+    assert bool(torch.isfinite(film.mean).all())
+    albedo = scene.materials.albedo.clone()
+    albedo[0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match="NaN guard"):
+        render(inject_params(scene, {"albedo": albedo}), 32, 32, 1, cfg=cfg, kspp=1)
