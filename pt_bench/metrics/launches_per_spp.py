@@ -1,0 +1,8 @@
+"""Device kernels the host launched per sample per pixel in the traced window
+of a render (copies and fills not counted)."""
+
+
+def read(rec):
+    if rec.kind != "render" or not rec.trace.launches:
+        return None
+    return rec.trace.launches / (rec.units * rec.spp)
