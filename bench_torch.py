@@ -330,7 +330,7 @@ def run_cell(name: str, scenes: dict, seed: int = 0, windows: int | None = None,
     scene, scene_s = build_scene(cell, scenes)
     traffic = (Steps if cell.grad else Renders)(cell, scene, seed)
     per = "step" if cell.grad else "spp"
-    _, zero, read = CS.launch_counters()
+    zero, read = CS.launch_counters()
 
     traffic.window()  # warm: first launches, lazily built tables
     torch.cuda.synchronize()
@@ -419,7 +419,7 @@ def smoke() -> dict:
     """bench.py --smoke (bench.py:91-127) on the card: 64², 1 spp, the
     Cornell box through kernel 1 and the subdivision-16 mesh box with
     ``fused="off"`` through kernel 4; each film finite and > 0."""
-    _, zero, read = CS.launch_counters()
+    zero, read = CS.launch_counters()
     results = {}
     for label, scene, fused, counter in (
         ("fused", cornell_box(64, 64), "on", "trace_paths_fused"),

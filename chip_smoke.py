@@ -794,9 +794,8 @@ def record_fused_launches(MKC, fn):
     """Run ``fn`` with the fused kernel's wrapper, which
     ``render_sample_batch`` looks up in ``MKC`` (its module) at each call,
     shimmed to keep a copy of every launch's inputs → [((px, py, sample,
-    o, d), keyword arguments)]. The wrapper itself runs, with its module
-    name restored for the call (it counts its launches on itself, looked
-    up by that name), so its launch count stays true."""
+    o, d), keyword arguments)]. The wrapper itself runs, so its launch
+    count stays true."""
     import torch
 
     rec = []
@@ -805,11 +804,7 @@ def record_fused_launches(MKC, fn):
     def rec_fused(scene, px, py, sample, o, d, **kw):
         sample_c = sample.clone() if torch.is_tensor(sample) else sample
         rec.append(((px.clone(), py.clone(), sample_c, o.clone(), d.clone()), kw))
-        MKC.trace_paths_fused = fused
-        try:
-            return fused(scene, px, py, sample, o, d, **kw)
-        finally:
-            MKC.trace_paths_fused = rec_fused
+        return fused(scene, px, py, sample, o, d, **kw)
 
     MKC.trace_paths_fused = rec_fused
     try:
@@ -820,27 +815,26 @@ def record_fused_launches(MKC, fn):
 
 
 def launch_counters():
-    """(the kernel wrappers, zero, read): ``zero`` sets every wrapper's
-    launch count to 0, ``read`` returns them by name, each after a sync."""
+    """(zero, read): ``zero`` sets every counter of ``utils/trace.py`` to
+    0, ``read`` returns the kernel wrappers' ``launches.<name>`` by name,
+    each after a sync."""
     import torch
 
-    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
-    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
-    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
+    from cuda_optix_pathtracing_tpu_torch.utils import trace
 
-    counters = (MKC.trace_paths_fused, IC.closest_bruteforce, IC.anyhit_bruteforce,
-                BV.bvh_closest_raw, BV.bvh_any_raw, MKC.bounce_fused)
+    names = ("trace_paths_fused", "closest_bruteforce", "anyhit_bruteforce",
+             "bvh_closest_raw", "bvh_any_raw", "bounce_fused")
 
     def zero():
         torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        trace.reset()
 
     def read():
         torch.cuda.synchronize()
-        return {c.__name__: c.launches for c in counters}
+        counts = trace.snapshot()
+        return {n: counts[f"launches.{n}"] for n in names}
 
-    return counters, zero, read
+    return zero, read
 
 
 def check(cond: bool, what: str) -> None:
@@ -1660,7 +1654,7 @@ def phase8_rank(rank: int, port: int, out_dir: str) -> int:
 
     torch.set_num_threads(2)
     init_distributed(f"localhost:{port}", 2, rank, device="cuda")
-    _, zero, read = launch_counters()
+    zero, read = launch_counters()
     out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
            "device": torch.cuda.get_device_name(torch.cuda.current_device())}
     try:
@@ -1705,7 +1699,7 @@ def phase8_cli(rank: int, port: int, out: str) -> int:
     JSON line just after."""
     from cuda_optix_pathtracing_tpu_torch.utils import cli
 
-    _, zero, read = launch_counters()
+    zero, read = launch_counters()
     zero()
     rc = cli.main(phase8_cli_args(out) + ["--coordinator", f"localhost:{port}",
                                           "--num-processes", "2", "--process-id", str(rank)])
@@ -2053,7 +2047,7 @@ def main() -> int:
         closest_plain,
     )
     from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh
-    from cuda_optix_pathtracing_tpu_torch.utils import cli
+    from cuda_optix_pathtracing_tpu_torch.utils import cli, trace
     from cuda_optix_pathtracing_tpu_torch.utils.imageio import write_png
 
     dev = torch.device("cuda")
@@ -2218,10 +2212,11 @@ def main() -> int:
                                     tri_chunk=1024)
     kpx, kpy, ks, ko, kd = camera_rays(mesh, 2, morton=True)
     for n_k in K5_SIZES:
-        before = trace_paths_fused.launches
+        before = trace.snapshot()["launches.trace_paths_fused"]
         args = tuple(x[:n_k] for x in (kpx, kpy, ks, ko, kd))
         rk = trace_paths_fused(mesh, *args, max_depth=DEPTH)
-        check(rk.shape == (n_k, 3) and trace_paths_fused.launches == before + (n_k > 0),
+        launched = trace.snapshot()["launches.trace_paths_fused"] - before
+        check(rk.shape == (n_k, 3) and launched == (n_k > 0),
               f"fused BVH at n = {n_k}: ({n_k}, 3) radiance, {int(n_k > 0)} launch")
         if n_k:
             rp = MK.trace_paths(mesh, cfg_check, *args, device=dev)
@@ -2253,7 +2248,7 @@ def main() -> int:
 
     # ---- 3. the main paths -------------------------------------------------
     print("phase 3: main paths")
-    counters, zero, read = launch_counters()
+    zero, read = launch_counters()
 
     main_scene = cornell_box(W, H)
     zero()
@@ -2421,7 +2416,7 @@ def main() -> int:
     o1, d1 = cam_o[:n1].contiguous(), cam_d[:n1].contiguous()
     px1, py1, s1 = px[:n1], py[:n1], sample[:n1]
 
-    saved = {c: c.launches for c in counters}
+    saved = read()
     # the main paths' spread: repeated untraced renders, back to back,
     # before any profiler session; the two mesh routes in turns
     mpaths_rep = []
@@ -2745,8 +2740,9 @@ def main() -> int:
         lambda c=c: MK.render(mesh_main, W, H, cfg=c, **mesh_kw), MESH_SPP,
         {k: kernel_names[k] for k in ("bvh_closest", "bvh_anyhit")})
         for key, c in variants.items()}
-    for c, v in saved.items():  # timing launches are not main-path launches
-        c.launches = v
+    zero()  # timing launches are not main-path launches
+    for name, v in saved.items():
+        trace.count(f"launches.{name}", v)
 
     flops_fused = tests * MT_FLOPS + hits * SHADE_FLOPS
     scale = n_pass / n_fb

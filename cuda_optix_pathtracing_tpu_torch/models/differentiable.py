@@ -30,6 +30,7 @@ from typing import Callable
 import torch
 
 from ..scene.types import Scene, with_kernel_tables
+from ..utils import trace
 from .megakernel import MegakernelConfig, render_sample_batch
 
 PARAM_KEYS = ("albedo", "refl_tint", "trans_tint", "light_color", "env_image")
@@ -105,9 +106,10 @@ def render_mean(scene: Scene, cfg: MegakernelConfig, width, height, spp,
         r = render_sample_batch(
             scene, cfg, width, height, int(sample_offset) + s, nspp=spp_per_pass
         )
-        if spp_per_pass > 1:
-            r = torch.sum(r, dim=0)
-        mean = mean + r / spp
+        with trace.span("pt.film"):
+            if spp_per_pass > 1:
+                r = torch.sum(r, dim=0)
+            mean = mean + r / spp
     return mean
 
 
@@ -119,9 +121,11 @@ def make_loss(
     target = torch.as_tensor(target, dtype=torch.float32, device=scene.device)
 
     def loss(params, sample_offset=0):
-        sc = inject_params(scene, params)
-        img = render_mean(sc, cfg, width, height, spp, sample_offset, spp_per_pass)
-        return torch.mean((img - target) ** 2)
+        with trace.span("pt.loss"):
+            with trace.span("pt.inject"):
+                sc = inject_params(scene, params)
+            img = render_mean(sc, cfg, width, height, spp, sample_offset, spp_per_pass)
+            return torch.mean((img - target) ** 2)
 
     return loss
 

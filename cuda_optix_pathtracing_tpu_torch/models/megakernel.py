@@ -95,6 +95,7 @@ from ..ops.vecmath import (
     sqr,
 )
 from ..scene.types import Scene, scene_to
+from ..utils import trace
 
 
 @dataclass(frozen=True)
@@ -371,49 +372,63 @@ def _any_instanced(scene: Scene, cfg, o, d, t_max, alive=None):
     return run(o, d, t_arr)
 
 
+def _count_rays(o, alive) -> None:
+    """The rays handed to a query (``rays.query``) and, while recording,
+    those of them alive (``rays.live``)."""
+    trace.count("rays.query", o.shape[0])
+    if alive is not None:
+        trace.count_device("rays.live", alive)
+
+
 def _closest(scene: Scene, cfg, o, d, alive=None):
-    if scene.instances is not None:
-        return _closest_instanced(scene, cfg, o, d, alive)
-    if not _use_kernels(cfg, o):
-        t, i = intersect_closest_raw(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
-        )
-    elif scene.bvh is not None:
-        o, d = _park_dead(o, d, alive)
-        if _sort_on(cfg, scene):
-            t, i = sorted_apply(
-                o, d, _sort_key(scene, o, d, alive),
-                lambda so, sd: bvh_cuda.bvh_closest_raw(so, sd, scene),
+    with trace.span("pt.closest"):
+        _count_rays(o, alive)
+        if scene.instances is not None:
+            return _closest_instanced(scene, cfg, o, d, alive)
+        if not _use_kernels(cfg, o):
+            t, i = intersect_closest_raw(
+                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
             )
+        elif scene.bvh is not None:
+            o, d = _park_dead(o, d, alive)
+            if _sort_on(cfg, scene):
+                with trace.span("pt.raysort"):
+                    key = _sort_key(scene, o, d, alive)
+                t, i = sorted_apply(
+                    o, d, key, lambda so, sd: bvh_cuda.bvh_closest_raw(so, sd, scene)
+                )
+            else:
+                t, i = bvh_cuda.bvh_closest_raw(o, d, scene)
         else:
-            t, i = bvh_cuda.bvh_closest_raw(o, d, scene)
-    else:
-        t, i = intersect_cuda.closest_bruteforce(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, rows=_brute_rows(scene)
-        )
-    return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
+            t, i = intersect_cuda.closest_bruteforce(
+                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, rows=_brute_rows(scene)
+            )
+        return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
 
 
 def _any(scene: Scene, cfg, o, d, t_max, alive=None):
-    if scene.instances is not None:
-        return _any_instanced(scene, cfg, o, d, t_max, alive)
-    if not _use_kernels(cfg, o):
-        return intersect_any(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
-        )
-    if scene.bvh is not None:
-        o, d = _park_dead(o, d, alive)
-        if _sort_on(cfg, scene):
-            occ = sorted_apply_tmax(
-                o, d, t_max, _sort_key(scene, o, d, alive),
-                lambda so, sd, st: bvh_cuda.bvh_any_raw(so, sd, scene, st),
+    with trace.span("pt.shadow"):
+        _count_rays(o, alive)
+        if scene.instances is not None:
+            return _any_instanced(scene, cfg, o, d, t_max, alive)
+        if not _use_kernels(cfg, o):
+            return intersect_any(
+                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
             )
-        else:
-            occ = bvh_cuda.bvh_any_raw(o, d, scene, t_max)
-        return occ > 0
-    return intersect_cuda.anyhit_bruteforce(
-        o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, rows=_brute_rows(scene)
-    )
+        if scene.bvh is not None:
+            o, d = _park_dead(o, d, alive)
+            if _sort_on(cfg, scene):
+                with trace.span("pt.raysort"):
+                    key = _sort_key(scene, o, d, alive)
+                occ = sorted_apply_tmax(
+                    o, d, t_max, key, lambda so, sd, st: bvh_cuda.bvh_any_raw(so, sd, scene, st),
+                )
+            else:
+                occ = bvh_cuda.bvh_any_raw(o, d, scene, t_max)
+            return occ > 0
+        return intersect_cuda.anyhit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, rows=_brute_rows(scene)
+        )
 
 
 def resolve_fused(scene: Scene, cfg: MegakernelConfig) -> MegakernelConfig:
@@ -805,132 +820,134 @@ def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, h
 
 def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: PathState) -> PathState:
     """One path-tracing bounce over the full ray batch."""
-    n = state.o.shape[0]
-    depth_dim = depth * R.DIMS_PER_BOUNCE
-    hit = _closest(scene, cfg, state.o, state.d, alive=state.alive)
+    with trace.span("pt.bounce", depth=depth):
+        n = state.o.shape[0]
+        depth_dim = depth * R.DIMS_PER_BOUNCE
+        hit = _closest(scene, cfg, state.o, state.d, alive=state.alive)
+        with trace.span("pt.shade"):
+            # miss → environment, path dies; when the environment is also
+            # NEE-sampled, MIS-weighted against the last bounce's bsdf pdf (delta
+            # prefixes keep full weight)
+            miss = state.alive & ~hit.hit
+            if cfg.env_nee:
+                le_env, pdf_env_of_d = eval_envmap(scene.env, state.d)
+                w_env = torch.where(
+                    state.prev_delta,
+                    1.0,
+                    sqr(state.prev_pdf)
+                    / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_env_of_d), min=1e-24),
+                )
+                env_term = state.beta * le_env * w_env[..., None]
+            else:
+                env_term = state.beta * env_radiance(scene.env, state.d)
+            radiance = state.radiance + torch.where(miss[..., None], env_term, 0.0)
+            alive = state.alive & hit.hit
 
-    # miss → environment, path dies; when the environment is also
-    # NEE-sampled, MIS-weighted against the last bounce's bsdf pdf (delta
-    # prefixes keep full weight)
-    miss = state.alive & ~hit.hit
-    if cfg.env_nee:
-        le_env, pdf_env_of_d = eval_envmap(scene.env, state.d)
-        w_env = torch.where(
-            state.prev_delta,
-            1.0,
-            sqr(state.prev_pdf)
-            / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_env_of_d), min=1e-24),
-        )
-        env_term = state.beta * le_env * w_env[..., None]
-    else:
-        env_term = state.beta * env_radiance(scene.env, state.d)
-    radiance = state.radiance + torch.where(miss[..., None], env_term, 0.0)
-    alive = state.alive & hit.hit
-
-    wo = -state.d
-    textured = scene.textures is not None
-    mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64), textured=textured)
-    ns = _shading_normal(scene, hit)
-    if textured:
-        # the ray cone's width at the hit drives the mip selection
-        cone_at_hit = state.cone_w + state.cone_s * torch.abs(hit.t)
-        suv = _uv_at_hit(scene, hit)
-        mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
-        ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
-    use_tree = _tree_on(cfg, scene)
-    if scene.emissive is not None:
-        # directly-hit emitter, MIS-weighted against the NEE estimator
-        # (weight 1 after delta bounces and the camera)
-        cos_l = torch.abs(dot(state.d, hit.normal))
-        if use_tree and scene.tri_emrec is not None:
-            # NEE's density for this triangle: the tree's pmf from the last
-            # shading point times the triangle's own area pdf
-            levels, _ = split_frontier(scene.light_tree, cfg.nee_splits)
-            rec_hit = torch.clamp(scene.tri_emrec[hit.tri], min=0)
-            pmf_sel = light_tree_pmf(
-                scene.light_tree, rec_hit, state.o, state.prev_n, split_levels=levels
+            wo = -state.d
+            textured = scene.textures is not None
+            mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64), textured=textured)
+            ns = _shading_normal(scene, hit)
+            if textured:
+                # the ray cone's width at the hit drives the mip selection
+                cone_at_hit = state.cone_w + state.cone_s * torch.abs(hit.t)
+                suv = _uv_at_hit(scene, hit)
+                mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
+                ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
+            use_tree = _tree_on(cfg, scene)
+            if scene.emissive is not None:
+                # directly-hit emitter, MIS-weighted against the NEE estimator
+                # (weight 1 after delta bounces and the camera)
+                cos_l = torch.abs(dot(state.d, hit.normal))
+                if use_tree and scene.tri_emrec is not None:
+                    # NEE's density for this triangle: the tree's pmf from the last
+                    # shading point times the triangle's own area pdf
+                    levels, _ = split_frontier(scene.light_tree, cfg.nee_splits)
+                    rec_hit = torch.clamp(scene.tri_emrec[hit.tri], min=0)
+                    pmf_sel = light_tree_pmf(
+                        scene.light_tree, rec_hit, state.o, state.prev_n, split_levels=levels
+                    )
+                    area_tri = 0.5 * length(cross(scene.tri_e0[hit.tri], scene.tri_e1[hit.tri]))
+                    pdf_hit = sqr(hit.t) / torch.clamp(cos_l * area_tri, min=1e-12) * pmf_sel
+                else:
+                    pdf_hit = (
+                        sqr(hit.t)
+                        / torch.clamp(cos_l * scene.emissive.area, min=1e-12)
+                        * (1.0 / scene.num_lights)
+                    )
+                w_em = torch.where(
+                    state.prev_delta,
+                    1.0,
+                    sqr(state.prev_pdf)
+                    / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_hit), min=1e-24),
+                )
+                radiance = radiance + torch.where(
+                    alive[..., None], state.beta * mat.emission * w_em[..., None], 0.0
+                )
+        with trace.span("pt.nee"):
+            nee = (_nee_tree if use_tree else _nee)(
+                scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
+                alive=alive, ns=ns,
             )
-            area_tri = 0.5 * length(cross(scene.tri_e0[hit.tri], scene.tri_e1[hit.tri]))
-            pdf_hit = sqr(hit.t) / torch.clamp(cos_l * area_tri, min=1e-12) * pmf_sel
-        else:
-            pdf_hit = (
-                sqr(hit.t)
-                / torch.clamp(cos_l * scene.emissive.area, min=1e-12)
-                * (1.0 / scene.num_lights)
+            if cfg.env_nee:
+                nee = nee + _nee_env(
+                    scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
+                    alive=alive, ns=ns,
+                )
+            radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
+        with trace.span("pt.bsdf"):
+            u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
+            uc = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.BSDF_UC)
+            bs = sample_bsdf(mat, wo, ns, hit.normal, u1, u2, uc, state.inside, ft=cfg.features)
+
+            valid = bs.pdf > 0.0
+            beta = state.beta * torch.where(
+                valid[..., None], bs.f_cos / torch.clamp(bs.pdf, min=1e-12)[..., None], 1.0
             )
-        w_em = torch.where(
-            state.prev_delta,
-            1.0,
-            sqr(state.prev_pdf)
-            / torch.clamp(sqr(state.prev_pdf) + sqr(pdf_hit), min=1e-24),
-        )
-        radiance = radiance + torch.where(
-            alive[..., None], state.beta * mat.emission * w_em[..., None], 0.0
-        )
-    nee = (_nee_tree if use_tree else _nee)(
-        scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
-        alive=alive, ns=ns,
-    )
-    if cfg.env_nee:
-        nee = nee + _nee_env(
-            scene, cfg, sampler, px, py, sample, depth_dim, hit, mat, wo, state.inside,
-            alive=alive, ns=ns,
-        )
-    radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
+            alive = alive & valid
+            o_new = offset_ray_origin(hit.pos, hit.error, hit.normal, bs.wi)
+            inside = state.inside ^ (bs.refract & alive)
+            eta_scale = torch.where(
+                bs.refract & alive, state.eta_scale * sqr(bs.eta), state.eta_scale
+            )
 
-    u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
-    uc = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.BSDF_UC)
-    bs = sample_bsdf(mat, wo, ns, hit.normal, u1, u2, uc, state.inside, ft=cfg.features)
+            # russian roulette on β·∏η² from rr_start_depth on
+            rr_beta = max_component(beta) * eta_scale
+            u_rr = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.RR)
+            q = torch.clamp(1.0 - rr_beta, min=0.0)
+            do_rr = (rr_beta < 1.0) & (depth >= cfg.rr_start_depth)
+            killed = do_rr & (u_rr < q)
+            survived = torch.where(
+                do_rr & ~killed, 1.0 / torch.clamp(1.0 - q, min=1e-6), 1.0
+            )
+            beta = beta * survived[..., None]
+            alive = alive & ~killed
 
-    valid = bs.pdf > 0.0
-    beta = state.beta * torch.where(
-        valid[..., None], bs.f_cos / torch.clamp(bs.pdf, min=1e-12)[..., None], 1.0
-    )
-    alive = alive & valid
-    o_new = offset_ray_origin(hit.pos, hit.error, hit.normal, bs.wi)
-    inside = state.inside ^ (bs.refract & alive)
-    eta_scale = torch.where(
-        bs.refract & alive, state.eta_scale * sqr(bs.eta), state.eta_scale
-    )
+            cone_w = cone_s = None
+            if textured:
+                # ray cones: the width grows by spread·distance; the first
+                # non-specular bounce widens the spread to the diffuse cone
+                cone_w = torch.where(alive, cone_at_hit, state.cone_w)
+                cone_s = torch.where(
+                    alive & ~bs.delta,
+                    torch.clamp(state.cone_s, min=DIFFUSE_CONE_SPREAD),
+                    state.cone_s,
+                )
 
-    # russian roulette on β·∏η² from rr_start_depth on
-    rr_beta = max_component(beta) * eta_scale
-    u_rr = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.RR)
-    q = torch.clamp(1.0 - rr_beta, min=0.0)
-    do_rr = (rr_beta < 1.0) & (depth >= cfg.rr_start_depth)
-    killed = do_rr & (u_rr < q)
-    survived = torch.where(
-        do_rr & ~killed, 1.0 / torch.clamp(1.0 - q, min=1e-6), 1.0
-    )
-    beta = beta * survived[..., None]
-    alive = alive & ~killed
-
-    cone_w = cone_s = None
-    if textured:
-        # ray cones: the width grows by spread·distance; the first
-        # non-specular bounce widens the spread to the diffuse cone
-        cone_w = torch.where(alive, cone_at_hit, state.cone_w)
-        cone_s = torch.where(
-            alive & ~bs.delta,
-            torch.clamp(state.cone_s, min=DIFFUSE_CONE_SPREAD),
-            state.cone_s,
-        )
-
-    a3 = alive[..., None]
-    return PathState(
-        o=torch.where(a3, o_new, state.o),
-        d=torch.where(a3, bs.wi, state.d),
-        beta=torch.where(a3, beta, state.beta),
-        radiance=radiance,
-        alive=alive,
-        inside=inside,
-        eta_scale=eta_scale,
-        prev_pdf=torch.where(alive, bs.pdf, state.prev_pdf),
-        prev_delta=torch.where(alive, bs.delta, state.prev_delta),
-        cone_w=cone_w,
-        cone_s=cone_s,
-        prev_n=None if state.prev_n is None else torch.where(a3, ns, state.prev_n),
-    )
+            a3 = alive[..., None]
+            return PathState(
+                o=torch.where(a3, o_new, state.o),
+                d=torch.where(a3, bs.wi, state.d),
+                beta=torch.where(a3, beta, state.beta),
+                radiance=radiance,
+                alive=alive,
+                inside=inside,
+                eta_scale=eta_scale,
+                prev_pdf=torch.where(alive, bs.pdf, state.prev_pdf),
+                prev_delta=torch.where(alive, bs.delta, state.prev_delta),
+                cone_w=cone_w,
+                cone_s=cone_s,
+                prev_n=None if state.prev_n is None else torch.where(a3, ns, state.prev_n),
+            )
 
 
 def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, device="cuda",
@@ -945,31 +962,33 @@ def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, devic
     _validate(cfg)
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
-    px, py, o, d = (x.to(dev) for x in (px, py, o, d))
-    if torch.is_tensor(sample):
-        sample = sample.to(dev)
-    sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
-    state = camera_path_state(scene, cfg, o, d)
+    with trace.span("pt.trace"):
+        px, py, o, d = (x.to(dev) for x in (px, py, o, d))
+        if torch.is_tensor(sample):
+            sample = sample.to(dev)
+        sampler = R.Sampler(cfg.sampler, cfg.seed, qmc_dims)
+        state = camera_path_state(scene, cfg, o, d)
 
-    def bounces(depths, state):
-        for depth in depths:
-            state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
-        return state
+        def bounces(depths, state):
+            for depth in depths:
+                state = bounce_step(scene, cfg, sampler, px, py, sample, depth, state)
+            return state
 
-    if cfg.remat and _needs_grad(scene, state):
-        # path replay: the backward pass recomputes each group of
-        # remat_every bounces from its input state and the counter-based
-        # RNG (no stateful generator is drawn from, so the RNG state is not
-        # stashed). Non-reentrant checkpointing keeps the gradients to the
-        # scene's tables, which the bounces close over.
-        k = cfg.remat_every
-        for start in range(0, cfg.max_depth, k):
-            depths = range(start, min(start + k, cfg.max_depth))
-            state = checkpoint(
-                bounces, depths, state, use_reentrant=False, preserve_rng_state=False
-            )
-        return state.radiance
-    return bounces(range(cfg.max_depth), state).radiance
+        if cfg.remat and _needs_grad(scene, state):
+            # path replay: the backward pass recomputes each group of
+            # remat_every bounces from its input state and the counter-based
+            # RNG (no stateful generator is drawn from, so the RNG state is not
+            # stashed). Non-reentrant checkpointing keeps the gradients to the
+            # scene's tables, which the bounces close over. Spans opened by
+            # the recomputation end in ":replay" (utils/trace.py).
+            k = cfg.remat_every
+            for start in range(0, cfg.max_depth, k):
+                depths = range(start, min(start + k, cfg.max_depth))
+                state = checkpoint(
+                    bounces, depths, state, use_reentrant=False, preserve_rng_state=False
+                )
+            return state.radiance
+        return bounces(range(cfg.max_depth), state).radiance
 
 
 def _needs_grad(scene: Scene, state: PathState) -> bool:
@@ -1001,59 +1020,62 @@ def camera_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nsp
     """Camera rays of ``nspp`` samples of every pixel, in the render's
     pixel order → (px, py, sample, o, d, filter weight or None, morton)."""
     dev = scene.device
-    pix = pixel_centers(width, height, dev)
-    morton = _use_morton(cfg, scene, width, height)
-    if morton:
-        pix = pix[torch.as_tensor(morton_pixel_order(width, height), device=dev)]
-    if nspp > 1:
-        pix = pix.repeat(nspp, 1)
-        sample = sample + torch.repeat_interleave(
-            torch.arange(nspp, dtype=torch.int64, device=dev), width * height
-        )
-    px = pix[:, 0].to(torch.int64)
-    py = pix[:, 1].to(torch.int64)
-    sampler = R.Sampler(cfg.sampler, cfg.seed)
-    u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
-    fw = None
-    if cfg.pixel_filter == "mitchell":
-        dx, dy, fw = sample_filter(filter_sampler(str(dev)), u1, u2)
-        p_film = pix + 0.5 + torch.stack([dx, dy], dim=-1)
-    else:
-        p_film = pix + torch.stack([u1, u2], dim=-1)
-    o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
-    return px, py, sample, o, d, fw, morton
+    with trace.span("pt.camera"):
+        pix = pixel_centers(width, height, dev)
+        morton = _use_morton(cfg, scene, width, height)
+        if morton:
+            pix = pix[torch.as_tensor(morton_pixel_order(width, height), device=dev)]
+        if nspp > 1:
+            pix = pix.repeat(nspp, 1)
+            sample = sample + torch.repeat_interleave(
+                torch.arange(nspp, dtype=torch.int64, device=dev), width * height
+            )
+        px = pix[:, 0].to(torch.int64)
+        py = pix[:, 1].to(torch.int64)
+        sampler = R.Sampler(cfg.sampler, cfg.seed)
+        u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
+        fw = None
+        if cfg.pixel_filter == "mitchell":
+            dx, dy, fw = sample_filter(filter_sampler(str(dev)), u1, u2)
+            p_film = pix + 0.5 + torch.stack([dx, dy], dim=-1)
+        else:
+            p_film = pix + torch.stack([u1, u2], dim=-1)
+        o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
+        return px, py, sample, o, d, fw, morton
 
 
 def batch_image(radiance, fw, morton: bool, width, height, nspp: int = 1):
     """Radiance of a ``camera_batch`` → (nspp, H, W, 3) image, or (H, W,
     3) when nspp == 1: weighted by the filter, back in raster order."""
-    if fw is not None:
-        radiance = radiance * fw[:, None]
-    if morton:
-        img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
-        return img if nspp > 1 else img[0]
-    if nspp > 1:
-        return radiance.reshape(nspp, height, width, 3)
-    return radiance.reshape(height, width, 3)
+    with trace.span("pt.film"):
+        if fw is not None:
+            radiance = radiance * fw[:, None]
+        if morton:
+            img = unmorton_image(radiance.reshape(nspp, height * width, 3), height, width)
+            return img if nspp > 1 else img[0]
+        if nspp > 1:
+            return radiance.reshape(nspp, height, width, 3)
+        return radiance.reshape(height, width, 3)
 
 
 def render_sample_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
     """Render ``nspp`` samples for every pixel → (nspp, H, W, 3) radiance,
     or (H, W, 3) when nspp == 1. The scene's device is the render's."""
-    px, py, sample, o, d, fw, morton = camera_batch(scene, cfg, width, height, sample, nspp)
-    if cfg.fused == "auto":
-        cfg = resolve_fused(scene, cfg)
-    if cfg.fused == "on":
-        from .megakernel_cuda import trace_paths_fused
+    with trace.span("pt.pass"):
+        px, py, sample, o, d, fw, morton = camera_batch(scene, cfg, width, height, sample, nspp)
+        if cfg.fused == "auto":
+            cfg = resolve_fused(scene, cfg)
+        if cfg.fused == "on":
+            from .megakernel_cuda import trace_paths_fused
 
-        radiance = trace_paths_fused(
-            scene, px, py, sample, o, d,
-            max_depth=cfg.max_depth, rr_start_depth=cfg.rr_start_depth,
-            seed=cfg.seed, sampler=cfg.sampler,
-        )
-    else:
-        radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=scene.device)
-    return batch_image(radiance, fw, morton, width, height, nspp)
+            radiance = trace_paths_fused(
+                scene, px, py, sample, o, d,
+                max_depth=cfg.max_depth, rr_start_depth=cfg.rr_start_depth,
+                seed=cfg.seed, sampler=cfg.sampler,
+            )
+        else:
+            radiance = trace_paths(scene, cfg, px, py, sample, o, d, device=scene.device)
+        return batch_image(radiance, fw, morton, width, height, nspp)
 
 
 def render_progressive(scene: Scene, film: Film, cfg: MegakernelConfig, width, height, sample_offset, kspp, spp_per_pass: int = 1, device="cuda"):
@@ -1065,14 +1087,16 @@ def render_progressive(scene: Scene, film: Film, cfg: MegakernelConfig, width, h
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     film = Film(*(x.to(dev) for x in film))
-    for k in range(0, kspp, spp_per_pass):
-        radiance = render_sample_batch(
-            scene, cfg, width, height, int(sample_offset) + k, nspp=spp_per_pass
-        )
-        if spp_per_pass > 1:
-            film = film_add_batch(film, radiance)
-        else:
-            film = film_add_sample(film, radiance)
+    with trace.span("pt.batch", sample_offset=sample_offset, kspp=kspp):
+        for k in range(0, kspp, spp_per_pass):
+            radiance = render_sample_batch(
+                scene, cfg, width, height, int(sample_offset) + k, nspp=spp_per_pass
+            )
+            with trace.span("pt.film"):
+                if spp_per_pass > 1:
+                    film = film_add_batch(film, radiance)
+                else:
+                    film = film_add_sample(film, radiance)
     return film
 
 

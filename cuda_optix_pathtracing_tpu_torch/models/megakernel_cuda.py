@@ -20,8 +20,8 @@ that stays in slot order; the kernel writes each path's next sort key,
 one stable sort of the keys between depths gives the next launch its
 permutation. Like the reference, ``render()`` never takes it.
 
-``trace_paths_fused.launches`` and ``bounce_fused.launches`` count kernel
-launches and nothing else.
+Each launch adds 1 to the counter ``launches.trace_paths_fused`` or
+``launches.bounce_fused`` (``utils/trace.py``), and nothing else does.
 
 Scope: Oren-Nayar, Lambert, GGX dielectric and conductor without
 textures; flat shading (no shading normals); point, spot and area lights
@@ -45,6 +45,7 @@ from ..ops.lights import AREA, POINT, SPOT
 from ..ops.raysort import ray_sort_key32
 from ..ops.shade_tables import BRUTE_ROW_WORDS, EM_ROWS, EPOLY_N, LIGHT_ROWS, MAT_ROWS
 from ..scene.types import Scene
+from ..utils import trace
 
 MAX_SMEM_BYTES = 227 * 1024  # one block's dynamic shared memory on Hopper
 FUSED_LIGHT_TYPES = (POINT, SPOT, AREA)
@@ -182,58 +183,56 @@ def trace_paths_fused(
 ):
     """Fused-path-loop radiance (N,3) for rays (o, d) — drop-in for
     ``megakernel.trace_paths`` on supported scenes (forward only)."""
-    code = _sampler_code(sampler, qmc_dims)
-    if not o.is_cuda:
-        from .megakernel import trace_paths
+    with trace.span("pt.fused"):
+        code = _sampler_code(sampler, qmc_dims)
+        if not o.is_cuda:
+            from .megakernel import trace_paths
 
-        cfg = _plain_cfg(max_depth, rr_start_depth, seed, sampler)
-        return trace_paths(scene, cfg, px, py, sample, o, d, device=o.device, qmc_dims=qmc_dims)
+            cfg = _plain_cfg(max_depth, rr_start_depth, seed, sampler)
+            return trace_paths(scene, cfg, px, py, sample, o, d, device=o.device, qmc_dims=qmc_dims)
 
-    dev = o.device
-    if scene.device != dev:
-        raise ValueError(f"scene is on {scene.device}, rays on {dev}")
-    n = o.shape[0]
-    if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise ValueError("o and d must be (N, 3) float32")
-    if table_bytes(scene) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"scene tables need {table_bytes(scene)} B of shared memory, more "
-            f"than the fused kernel's {MAX_SMEM_BYTES} B"
-        )
-    o, d = o.contiguous(), d.contiguous()
-    px32 = _u32_as_i32(px, n, dev)
-    py32 = _u32_as_i32(py, n, dev)
-    s32 = _u32_as_i32(sample, n, dev)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
+        dev = o.device
+        if scene.device != dev:
+            raise ValueError(f"scene is on {scene.device}, rays on {dev}")
+        n = o.shape[0]
+        if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != torch.float32 or d.dtype != torch.float32:
+            raise ValueError("o and d must be (N, 3) float32")
+        if table_bytes(scene) > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"scene tables need {table_bytes(scene)} B of shared memory, more "
+                f"than the fused kernel's {MAX_SMEM_BYTES} B"
+            )
+        o, d = o.contiguous(), d.contiguous()
+        px32 = _u32_as_i32(px, n, dev)
+        py32 = _u32_as_i32(py, n, dev)
+        s32 = _u32_as_i32(sample, n, dev)
+        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        if n == 0:
+            return out
+        k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n_mats = scene.materials.mtype.shape[0]
+        smp = (code, seed & 0xFFFFFFFF, qmc_dims)
+        if scene.bvh is not None:
+            check_bvh_scene(scene, o, d)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            rc = _lib().pt_fused_bvh(
+                o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
+                s32.data_ptr(), _shade(scene).data_ptr(), *_bvh_tables(scene),
+                n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, *smp,
+                counter.data_ptr(), out.data_ptr(), stream,
+            )
+        else:
+            rc = _lib().pt_fused_bruteforce(
+                o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
+                s32.data_ptr(), _brute(scene).data_ptr(),
+                n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
+                rr_start_depth, *smp, out.data_ptr(), stream,
+            )
+        if rc:
+            raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
+        trace.count("launches.trace_paths_fused")
         return out
-    k = scene.emissive.v0.shape[0] if scene.emissive is not None else 0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    n_mats = scene.materials.mtype.shape[0]
-    smp = (code, seed & 0xFFFFFFFF, qmc_dims)
-    if scene.bvh is not None:
-        check_bvh_scene(scene, o, d)
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        rc = _lib().pt_fused_bvh(
-            o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            s32.data_ptr(), _shade(scene).data_ptr(), *_bvh_tables(scene),
-            n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, *smp,
-            counter.data_ptr(), out.data_ptr(), stream,
-        )
-    else:
-        rc = _lib().pt_fused_bruteforce(
-            o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-            s32.data_ptr(), _brute(scene).data_ptr(),
-            n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
-            rr_start_depth, *smp, out.data_ptr(), stream,
-        )
-    if rc:
-        raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
-    trace_paths_fused.launches += 1
-    return out
-
-
-trace_paths_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +349,8 @@ def bounce_fused(scene: Scene, st: torch.Tensor, depth: int, rr_start_depth: int
     )
     if rc:
         raise RuntimeError(f"single-bounce kernel launch failed: CUDA error {rc}")
-    bounce_fused.launches += 1
+    trace.count("launches.bounce_fused")
     return keys
-
-
-bounce_fused.launches = 0
 
 
 def sort_paths(keys: torch.Tensor) -> torch.Tensor:
@@ -381,13 +377,14 @@ def trace_paths_fused_sorted(
     ``trace_paths_fused``'s bit for bit on the card, and, for CPU tensors,
     where every bounce is the plain ``bounce_step``, ``trace_paths``'s. BVH
     scenes only."""
-    if scene.bvh is None:
-        raise ValueError("the depth-sorted wavefront traces BVH scenes only")
-    _sampler_code(sampler, qmc_dims)
-    st = pack_path_state(px, py, sample, o, d)
-    perm = None
-    for depth in range(max_depth):
-        keys = bounce_fused(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims, perm=perm)
-        if depth + 1 < max_depth:
-            perm = sort_paths(keys)
-    return st[:, RADIANCE:RADIANCE + 3].contiguous()
+    with trace.span("pt.fused"):
+        if scene.bvh is None:
+            raise ValueError("the depth-sorted wavefront traces BVH scenes only")
+        _sampler_code(sampler, qmc_dims)
+        st = pack_path_state(px, py, sample, o, d)
+        perm = None
+        for depth in range(max_depth):
+            keys = bounce_fused(scene, st, depth, rr_start_depth, seed, sampler, qmc_dims, perm=perm)
+            if depth + 1 < max_depth:
+                perm = sort_paths(keys)
+        return st[:, RADIANCE:RADIANCE + 3].contiguous()

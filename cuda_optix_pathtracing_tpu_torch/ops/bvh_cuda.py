@@ -13,7 +13,8 @@ it runs the plain version, the brute-force sweep over the same packed,
 padded arrays (``ops/intersect.py``), which is what the reference computes
 for BVH scenes off the TPU. Pad rows have zero edges and never hit. The
 kernel may pick another row than the sweep where two triangles tie in t.
-``launches`` on each wrapper counts kernel launches and nothing else.
+Each launch adds 1 to the counter ``launches.<wrapper>``
+(``utils/trace.py``), and nothing else does.
 The launching branch is wrapped in ``ops/autodiff.nondiff_kernel`` (zero
 gradient to the rays and ``t_max``); the plain version stays
 differentiable through its own ops.
@@ -26,6 +27,7 @@ import functools
 
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 from .autodiff import nondiff_kernel
 from .bvh import COMPACT_STACK, stack_fits
@@ -101,11 +103,8 @@ def _closest_launch(o, d, scene):
         )
         if rc:
             raise RuntimeError(f"bvh_closest launch failed: CUDA error {rc}")
-        bvh_closest_raw.launches += 1
+        trace.count("launches.bvh_closest_raw")
     return t, i.to(torch.int64)
-
-
-bvh_closest_raw.launches = 0
 
 
 def bvh_any_raw(o, d, scene, t_max):
@@ -131,8 +130,6 @@ def _any_launch(o, d, scene, t_max):
         )
         if rc:
             raise RuntimeError(f"bvh_anyhit launch failed: CUDA error {rc}")
-        bvh_any_raw.launches += 1
+        trace.count("launches.bvh_any_raw")
     return occ
 
-
-bvh_any_raw.launches = 0

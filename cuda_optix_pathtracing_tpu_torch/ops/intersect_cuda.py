@@ -4,8 +4,8 @@ the counterpart of the reference ``ops/intersect_pallas.py``.
 For CUDA tensors each wrapper launches its kernel on the current stream or
 raises; for CPU tensors it runs the plain PyTorch version from
 ``ops/intersect.py`` (``closest_plain`` / ``any_plain`` here). There is no
-fallback from a failed launch. ``launches`` on each wrapper counts kernel
-launches and nothing else.
+fallback from a failed launch. Each launch adds 1 to the counter
+``launches.<wrapper>`` (``utils/trace.py``), and nothing else does.
 
 The kernels read the triangles as 48 B rows ``[v0, . | e0, 0 | e1, 0]``
 (``rows=``: a brute-force scene's ``brute_tables[:12 * T]``, built once per
@@ -26,6 +26,7 @@ import numbers
 
 import torch
 
+from ..utils import trace
 from . import _cuda_build
 from .autodiff import nondiff_kernel
 from .bvh import pack_tri_rows
@@ -123,11 +124,8 @@ def _closest_launch(o, d, v0, e0, e1, rows):
         )
         if rc:
             raise RuntimeError(f"closest_bruteforce launch failed: CUDA error {rc}")
-        closest_bruteforce.launches += 1
+        trace.count("launches.closest_bruteforce")
     return best_t, best_i
-
-
-closest_bruteforce.launches = 0
 
 
 def anyhit_bruteforce(o, d, v0, e0, e1, t_max, rows=None):
@@ -152,8 +150,6 @@ def _any_launch(o, d, v0, e0, e1, t_max, rows):
         )
         if rc:
             raise RuntimeError(f"anyhit_bruteforce launch failed: CUDA error {rc}")
-        anyhit_bruteforce.launches += 1
+        trace.count("launches.anyhit_bruteforce")
     return occ
 
-
-anyhit_bruteforce.launches = 0

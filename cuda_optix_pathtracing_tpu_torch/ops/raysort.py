@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 DEAD_KEY = 0xFFFFFFFF
 DEAD_KEY32 = 0x7FFFFFFF  # ray_sort_key32's dead key: after every live one
 
@@ -82,19 +84,26 @@ def _unsort(idx, x):
 def sorted_apply(o, d, key, fn):
     """``fn(o_sorted, d_sorted)`` → a tensor or a tuple of (N,) tensors,
     run on the rays stably sorted by ``key`` and returned in the rays'
-    own order."""
-    idx = torch.sort(key, stable=True).indices
-    outs = fn(o[idx], d[idx])
-    if isinstance(outs, tuple):
-        return tuple(_unsort(idx, x) for x in outs)
-    return _unsort(idx, outs)
+    own order. The sort and the unsort are ``pt.raysort`` spans."""
+    with trace.span("pt.raysort"):
+        idx = torch.sort(key, stable=True).indices
+        o, d = o[idx], d[idx]
+    outs = fn(o, d)
+    with trace.span("pt.raysort"):
+        if isinstance(outs, tuple):
+            return tuple(_unsort(idx, x) for x in outs)
+        return _unsort(idx, outs)
 
 
 def sorted_apply_tmax(o, d, t_max, key, fn):
     """Like :func:`sorted_apply` with a per-ray ``t_max`` sorted along:
     ``fn(o_sorted, d_sorted, t_max_sorted)`` → one (N,) tensor."""
-    idx = torch.sort(key, stable=True).indices
-    t_max = torch.broadcast_to(
-        torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],)
-    )
-    return _unsort(idx, fn(o[idx], d[idx], t_max[idx]))
+    with trace.span("pt.raysort"):
+        idx = torch.sort(key, stable=True).indices
+        t_max = torch.broadcast_to(
+            torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],)
+        )
+        o, d, t_max = o[idx], d[idx], t_max[idx]
+    occ = fn(o, d, t_max)
+    with trace.span("pt.raysort"):
+        return _unsort(idx, occ)

@@ -1,0 +1,13 @@
+"""Device kernels launched under the port's ``pt.camera`` span (the camera
+sampler: pixel order, the sampler's keys, ray generation) per sample per
+pixel, in the span window of a render (``pt_bench/spans.py``). Nothing
+when the span is absent."""
+
+from pt_bench import spans
+
+
+def read(rec):
+    w = spans.window()
+    if w is None or rec.kind != "render" or "pt.camera" not in w.attribution.spans:
+        return None
+    return w.attribution.launches(spans.leaf("pt.camera")) / (w.units * w.spp)

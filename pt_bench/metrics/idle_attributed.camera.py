@@ -1,0 +1,12 @@
+"""Share of the span window's device idle seconds put down to the port's
+``pt.camera`` span (``pt_bench/spans.py``), in %. Nothing when the span is
+absent."""
+
+from pt_bench import spans
+
+
+def read(rec):
+    w = spans.window()
+    if w is None or "pt.camera" not in w.attribution.spans:
+        return None
+    return w.attribution.share(spans.leaf("pt.camera"))

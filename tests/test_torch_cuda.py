@@ -23,6 +23,14 @@ def dev():
     return torch.device("cuda")
 
 
+def _launches(name: str) -> int:
+    """Kernel launches of the wrapper ``name`` so far (the registry of
+    ``utils/trace.py``)."""
+    from cuda_optix_pathtracing_tpu_torch.utils import trace
+
+    return trace.snapshot()[f"launches.{name}"]
+
+
 @pytest.fixture(scope="module")
 def scene(dev):
     from cuda_optix_pathtracing_tpu_torch.scene import cornell_box
@@ -52,11 +60,11 @@ def test_closest_kernel_matches_plain(dev, scene):
     from cuda_optix_pathtracing_tpu_torch.ops.intersect_cuda import closest_bruteforce, closest_plain
 
     o, d, _ = _rays(dev)
-    before = closest_bruteforce.launches
+    before = _launches("closest_bruteforce")
     tk, ik = closest_bruteforce(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
     tp, ip = closest_plain(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1)
     torch.cuda.synchronize()
-    assert closest_bruteforce.launches == before + 1
+    assert _launches("closest_bruteforce") == before + 1
     assert torch.equal(tk, tp) and torch.equal(ik, ip)
     assert bool((tk[:4] == 3.0e38).all())
 
@@ -76,7 +84,7 @@ def _hold_brute_kernels(o, d, v0, e0, e1, t_max, rows=None):
     equal on every row, one launch each."""
     from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
 
-    before = IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches
+    before = _launches("closest_bruteforce"), _launches("anyhit_bruteforce")
     tk, ik = IC.closest_bruteforce(o, d, v0, e0, e1, rows=rows)
     ok = IC.anyhit_bruteforce(o, d, v0, e0, e1, t_max, rows=rows)
     tp, ip = IC.closest_plain(o, d, v0, e0, e1)
@@ -84,7 +92,7 @@ def _hold_brute_kernels(o, d, v0, e0, e1, t_max, rows=None):
     torch.cuda.synchronize()
     n = o.shape[0]
     launched = int(n > 0)
-    assert (IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches) == (
+    assert (_launches("closest_bruteforce"), _launches("anyhit_bruteforce")) == (
         before[0] + launched, before[1] + launched)
     assert tk.dtype == torch.float32 and ik.dtype == torch.int64 and ok.dtype == torch.bool
     assert tk.shape == ik.shape == ok.shape == (n,)
@@ -230,11 +238,11 @@ def test_bvh_kernels_match_plain_and_oracle(dev, mesh):
     tris = (mesh.tri_v0, mesh.tri_e0, mesh.tri_e1)
     ro, rd, t_max = _rays(dev)
     for o, d in (_camera_rays(dev, mesh, 2)[3:], (ro, rd)):
-        before = bvh_closest_raw.launches
+        before = _launches("bvh_closest_raw")
         tk, ik = bvh_closest_raw(o, d, mesh)
         tp, ip = intersect_closest_raw(o, d, *tris)
         torch.cuda.synchronize()
-        assert bvh_closest_raw.launches == before + 1
+        assert _launches("bvh_closest_raw") == before + 1
         hit = tp < 3.0e38
         assert bool(((tk < 3.0e38) == hit).all())
         rel = (tk - tp).abs() / tp.abs()
@@ -262,11 +270,11 @@ def _hold_traversal_kernels(mesh, o, d, t_max):
 
     tris = (mesh.tri_v0, mesh.tri_e0, mesh.tri_e1)
     n = o.shape[0]
-    before = bvh_closest_raw.launches, bvh_any_raw.launches
+    before = _launches("bvh_closest_raw"), _launches("bvh_any_raw")
     tk, ik = bvh_closest_raw(o, d, mesh)
     occ = bvh_any_raw(o, d, mesh, t_max)
     torch.cuda.synchronize()
-    assert (bvh_closest_raw.launches, bvh_any_raw.launches) == (before[0] + (n > 0),
+    assert (_launches("bvh_closest_raw"), _launches("bvh_any_raw")) == (before[0] + (n > 0),
                                                                  before[1] + (n > 0))
     assert tk.shape == (n,) and ik.shape == (n,) and occ.shape == (n,)
     tp, ip = intersect_closest_raw(o, d, *tris)
@@ -311,10 +319,10 @@ def test_fused_bruteforce_any_launch_size(dev, scene, sampler, n):
     from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
 
     px, py, sample, o, d = (x[:n] for x in _camera_rays(dev, scene, 1, sampler=sampler))
-    before = trace_paths_fused.launches
+    before = _launches("trace_paths_fused")
     rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=5, sampler=sampler)
     assert rk.shape == (n, 3)
-    assert trace_paths_fused.launches == before + (n > 0)
+    assert _launches("trace_paths_fused") == before + (n > 0)
     rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=5, sampler=sampler,
                                                    backend="torch"),
                         px, py, sample, o, d, device=dev)
@@ -343,7 +351,6 @@ def test_fused_kernel_matches_trace_paths(dev, scene, mesh, case):
         table_bytes,
         trace_paths_fused,
     )
-    from cuda_optix_pathtracing_tpu_torch.ops.bvh_cuda import bvh_closest_raw
     from cuda_optix_pathtracing_tpu_torch.scene import cornell_box_mesh
 
     if case == "mixed":
@@ -356,15 +363,15 @@ def test_fused_kernel_matches_trace_paths(dev, scene, mesh, case):
         assert table_bytes(scene) == 4 * scene.brute_tables.numel()
     spp = 4
     px, py, sample, o, d = _camera_rays(dev, scene, spp)
-    before = trace_paths_fused.launches, bvh_closest_raw.launches
+    before = _launches("trace_paths_fused"), _launches("bvh_closest_raw")
     if case.startswith("mesh_wavefront"):
         sort = "off" if case.endswith("unsorted") else "auto"
         rk = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, fused="off", sort_rays=sort),
                             px, py, sample, o, d, device=dev)
-        assert bvh_closest_raw.launches == before[1] + 3
+        assert _launches("bvh_closest_raw") == before[1] + 3
     else:
         rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=3)
-        assert trace_paths_fused.launches == before[0] + 1
+        assert _launches("trace_paths_fused") == before[0] + 1
     rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, backend="torch"),
                         px, py, sample, o, d, device=dev)
     diff = ((rk - rp).reshape(spp, -1, 3).sum(0) / spp).abs()
@@ -393,9 +400,9 @@ def test_fused_halton_matches_trace_paths(dev, scene, mesh, case):
     scene = mesh if case == "mesh" else scene
     spp = 4
     px, py, sample, o, d = _camera_rays(dev, scene, spp, sampler="halton")
-    before = trace_paths_fused.launches
+    before = _launches("trace_paths_fused")
     rk = trace_paths_fused(scene, px, py, sample, o, d, max_depth=3, seed=9, sampler="halton")
-    assert trace_paths_fused.launches == before + 1
+    assert _launches("trace_paths_fused") == before + 1
     rp = MK.trace_paths(scene, MK.MegakernelConfig(max_depth=3, seed=9, sampler="halton",
                                                    backend="torch"),
                         px, py, sample, o, d, device=dev)
@@ -442,9 +449,9 @@ def test_bounce_kernel_matches_bounce_step(dev, mesh, sampler):
     perm = None
     for depth in range(4):
         sk, sp = st.clone(), st.clone()
-        before = MKC.bounce_fused.launches
+        before = _launches("bounce_fused")
         kk = MKC.bounce_fused(mesh, sk, depth, seed=3, sampler=sampler, perm=perm)
-        assert MKC.bounce_fused.launches == before + 1
+        assert _launches("bounce_fused") == before + 1
         kp = MKC.bounce_plain(mesh, sp, depth, seed=3, sampler=sampler)
         torch.cuda.synchronize()
         _check_planes(sk, sp)
@@ -464,9 +471,9 @@ def test_sorted_route_matches_fused(dev, mesh, sampler):
 
     spp = 4
     px, py, sample, o, d = _camera_rays(dev, mesh, spp, sampler=sampler)
-    before = MKC.bounce_fused.launches
+    before = _launches("bounce_fused")
     rs = MKC.trace_paths_fused_sorted(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
-    assert MKC.bounce_fused.launches == before + 5
+    assert _launches("bounce_fused") == before + 5
     rf = MKC.trace_paths_fused(mesh, px, py, sample, o, d, max_depth=5, sampler=sampler)
     assert bool(torch.isfinite(rs).all()) and float(rs.mean()) > 0.0
     assert torch.equal(rs, rf)
@@ -479,10 +486,10 @@ def test_fused_bvh_any_launch_size(dev, mesh, n):
     from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
 
     px, py, sample, o, d = (x[:n] for x in _camera_rays(dev, mesh, 5))
-    before = trace_paths_fused.launches
+    before = _launches("trace_paths_fused")
     rk = trace_paths_fused(mesh, px, py, sample, o, d, max_depth=5)
     assert rk.shape == (n, 3)
-    assert trace_paths_fused.launches == before + (n > 0)
+    assert _launches("trace_paths_fused") == before + (n > 0)
     rp = MK.trace_paths(mesh, MK.MegakernelConfig(max_depth=5, backend="torch"),
                         px, py, sample, o, d, device=dev)
     diff = (rk - rp).abs()
@@ -537,7 +544,7 @@ def test_bvh_wrappers_refuse_trees_the_kernels_cannot_walk(dev, mesh):
     deep = mesh._replace(bvh=mesh.bvh._replace(depth=10))
     huge = mesh._replace(bvh=mesh.bvh._replace(nodes=mesh.bvh.nodes[:1].expand(1 << 24, -1)))
     counters = (BV.bvh_closest_raw, BV.bvh_any_raw, MKC.trace_paths_fused, MKC.bounce_fused)
-    before = [c.launches for c in counters]
+    before = [_launches(c.__name__) for c in counters]
     for bad, match in ((deep, "depth 10"), (huge, "2\\^24")):
         with pytest.raises(ValueError, match=match):
             BV.bvh_closest_raw(o, d, bad)
@@ -548,7 +555,7 @@ def test_bvh_wrappers_refuse_trees_the_kernels_cannot_walk(dev, mesh):
         with pytest.raises(ValueError, match=match):
             MKC.bounce_fused(bad, MKC.pack_path_state(px, py, sample, co, cd), 0)
     assert not MKC.megakernel_cuda_supported(deep, MegakernelConfig())
-    assert [c.launches for c in counters] == before
+    assert [_launches(c.__name__) for c in counters] == before
 
 
 def test_kernel_entry_points_return_launch_errors(dev, mesh, monkeypatch):
@@ -600,13 +607,11 @@ def test_textured_bvh_scene_kernel_route_matches_plain(dev):
     import dataclasses
     import os
 
-    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
     from cuda_optix_pathtracing_tpu_torch.models.megakernel import (
         MegakernelConfig,
         render_sample_batch,
         resolve_fused,
     )
-    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
     from cuda_optix_pathtracing_tpu_torch.scene.parser import parse_scene
     from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host
 
@@ -617,10 +622,10 @@ def test_textured_bvh_scene_kernel_route_matches_plain(dev):
     assert scene.bvh is not None and scene.textures is not None
     cfg = MegakernelConfig(max_depth=4)
     assert resolve_fused(scene, cfg).fused == "off"
-    before = BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches, MKC.trace_paths_fused.launches
+    before = _launches("bvh_closest_raw"), _launches("bvh_any_raw"), _launches("trace_paths_fused")
     img_k = render_sample_batch(scene, cfg, 32, 32, 0)
     torch.cuda.synchronize()
-    after = BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches, MKC.trace_paths_fused.launches
+    after = _launches("bvh_closest_raw"), _launches("bvh_any_raw"), _launches("trace_paths_fused")
     assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (4, 4, 0)
     img_p = render_sample_batch(scene, dataclasses.replace(cfg, backend="torch"), 32, 32, 0)
     diff = (img_k - img_p).abs()
@@ -630,14 +635,10 @@ def test_textured_bvh_scene_kernel_route_matches_plain(dev):
 
 
 def _counts():
-    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
-    from cuda_optix_pathtracing_tpu_torch.ops import bvh_cuda as BV
-    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
-
     torch.cuda.synchronize()
-    return np.array([IC.closest_bruteforce.launches, IC.anyhit_bruteforce.launches,
-                     BV.bvh_closest_raw.launches, BV.bvh_any_raw.launches,
-                     MKC.trace_paths_fused.launches])
+    return np.array([_launches("closest_bruteforce"), _launches("anyhit_bruteforce"),
+                     _launches("bvh_closest_raw"), _launches("bvh_any_raw"),
+                     _launches("trace_paths_fused")])
 
 
 def _hold_kernel_route(scene, cfg, size, counts):
@@ -723,9 +724,9 @@ def test_backward_through_wrapped_kernels(dev, scene, mesh, kernel):
     wrapper, fn = call[kernel]
     with torch.no_grad():
         want = fn(o, d)
-    before = wrapper.launches
+    before = _launches(wrapper.__name__)
     got = fn(o, d)
-    assert wrapper.launches == before + 1
+    assert _launches(wrapper.__name__) == before + 1
     scale = torch.tensor(2.0, device=dev, requires_grad=True)
     if kernel.endswith("closest"):
         t, i = got
@@ -764,10 +765,10 @@ def test_kernel_route_gradients_match_plain(dev, scene, mesh, case):
         loss = D.make_loss(sc, MegakernelConfig(max_depth=3, backend=backend), 32, 32, 2,
                            target, spp_per_pass=2)
         params = D.init_params(sc, ("albedo", "light_color"))
-        before = [c.launches for c in counted]
+        before = [_launches(c.__name__) for c in counted]
         loss(params).backward()
         torch.cuda.synchronize()
-        made = [c.launches - b for c, b in zip(counted, before)]
+        made = [_launches(c.__name__) - b for c, b in zip(counted, before)]
         assert made == ([6, 6] if backend == "auto" else [0, 0]), made
         grads[backend] = params
     for key in ("albedo", "light_color"):
@@ -783,17 +784,15 @@ def test_sharded_blocks_match_one_block(dev, scene):
     """Two shard blocks of a Cornell render at 32², concatenated, equal the
     one-block render bit for bit (kernels 2 and 3, no fused kernel)."""
     from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig
-    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
-    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
     from cuda_optix_pathtracing_tpu_torch.parallel.render import Mesh, render_sharded
 
     cfg = MegakernelConfig(max_depth=3, remat=False)
-    before = (IC.closest_bruteforce.launches, trace_paths_fused.launches)
+    before = (_launches("closest_bruteforce"), _launches("trace_paths_fused"))
     one = render_sharded(scene, cfg, 32, 32, 2, Mesh(1, 0))
     two = [render_sharded(scene, cfg, 32, 32, 2, Mesh(2, k)) for k in range(2)]
     torch.cuda.synchronize()
-    assert IC.closest_bruteforce.launches - before[0] == 3 * 2 * 3
-    assert trace_paths_fused.launches == before[1]
+    assert _launches("closest_bruteforce") - before[0] == 3 * 2 * 3
+    assert _launches("trace_paths_fused") == before[1]
     assert torch.equal(torch.cat([b.mean for b in two]), one.mean)
     assert torch.equal(torch.cat([b.m2 for b in two]), one.m2)
     assert bool(torch.isfinite(one.mean).all()) and float(one.mean.mean()) > 0.0
@@ -821,13 +820,12 @@ def test_pool_wavefront_matches_render(dev, scene):
         WavefrontConfig,
         render_pool_wavefront,
     )
-    from cuda_optix_pathtracing_tpu_torch.ops import intersect_cuda as IC
 
     a = render(scene, 32, 32, 4, cfg=MegakernelConfig(max_depth=4, fused="off"), kspp=4)
-    before = IC.anyhit_bruteforce.launches
+    before = _launches("anyhit_bruteforce")
     b = render_pool_wavefront(scene, 32, 32, 4, cfg=WavefrontConfig(max_depth=4), pool=512)
     torch.cuda.synchronize()
-    assert IC.anyhit_bruteforce.launches > before
+    assert _launches("anyhit_bruteforce") > before
     torch.testing.assert_close(b.mean, a.mean, rtol=0, atol=3e-5)
     torch.testing.assert_close(b.m2, a.m2, rtol=0, atol=3e-4)
     assert float(b.n) == 4

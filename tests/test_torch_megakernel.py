@@ -43,6 +43,7 @@ from cuda_optix_pathtracing_tpu_torch.ops.camera import CameraConfig as TCam
 from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, cornell_box_mesh, scene_from_arrays
 from cuda_optix_pathtracing_tpu_torch.scene.types import HostScene as THost
 from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host as t_from_host
+from cuda_optix_pathtracing_tpu_torch.utils import trace
 from test_torch_bridge import flatten_scene
 from torch_scenes import build_mixed
 
@@ -147,7 +148,7 @@ def test_fused_wrapper_on_cpu_is_trace_paths(mixed_case):
     np.testing.assert_array_equal(
         _port_sum(t_scene, inputs, _fused_plain), _port_sum(t_scene, inputs, _trace)
     )
-    assert trace_paths_fused.launches == 0
+    assert trace.snapshot()["launches.trace_paths_fused"] == 0
 
 
 def test_render_film_matches_reference():

@@ -21,6 +21,7 @@ from cuda_optix_pathtracing_tpu.scene.procedural import cornell_box_mesh as j_co
 from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
 from cuda_optix_pathtracing_tpu_torch.models.megakernel import MegakernelConfig, trace_paths
 from cuda_optix_pathtracing_tpu_torch.scene import cornell_box, scene_from_arrays
+from cuda_optix_pathtracing_tpu_torch.utils import trace
 from test_torch_bridge import flatten_scene
 
 torch.set_num_threads(2)
@@ -61,12 +62,12 @@ def _t(px, py, sample, o, d):
 def test_sorted_equals_trace_paths_bit_for_bit(scenes, sampler):
     _, t_scene = scenes
     px, py, sample, o, d = _t(*_camera(scenes[0], sampler, spp=2))
-    before = MKC.bounce_fused.launches
+    before = trace.snapshot()["launches.bounce_fused"]
     ours = MKC.trace_paths_fused_sorted(t_scene, px, py, sample, o, d, max_depth=DEPTH,
                                         seed=5, sampler=sampler)
     plain = trace_paths(t_scene, MegakernelConfig(max_depth=DEPTH, seed=5, sampler=sampler),
                         px, py, sample, o, d, device="cpu")
-    assert MKC.bounce_fused.launches == before  # CPU: the plain bounce, no kernel
+    assert trace.snapshot()["launches.bounce_fused"] == before  # CPU: the plain bounce, no kernel
     assert ours.shape == (2 * W * H, 3) and float(ours.mean()) > 0.0
     np.testing.assert_array_equal(ours.numpy(), plain.numpy())
 
