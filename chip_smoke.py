@@ -71,7 +71,10 @@ Phases (each fails loudly; there is no CPU fallback):
    Mpaths/s of repeated renders of both scenes and routes, of the
    ``fused="off"`` route with and without the ray sort and Morton pixel
    order, and of the depth-sorted wavefront against the fused kernel in
-   turns; traced renders' device-busy shares;
+   turns; traced renders' device-busy shares; the camera kernel
+   ``pt_camera_rays`` at the Cornell pass (65,536 rays) and the mesh pass
+   (1,048,576, Morton order), bit-equal to ``camera_plain``, one launch a
+   pass, its device time against the bound of the bytes it writes;
 5. gradients (``models/differentiable.py``; the ``fused="off"`` route with
    path replay, kernels 2 and 3 in the forward pass and again in the
    replay): bench.py's albedo-gradient step (256², depth 5, 4 spp as one
@@ -132,7 +135,8 @@ Phases (each fails loudly; there is no CPU fallback):
    route's Mpaths/s; (f) the NaN guard on a poisoned albedo and on a
    clean 64² render; (g) two CLI processes (``--phase8-cli``) at 64², 4
    spp, rank 0's PNGs byte-equal to a one-process run's;
-9. ``bench_torch.py`` in this process: its ``--smoke`` (64², 1 spp through
+9. ``bench_torch.py`` in a process of its own (this script with
+   ``--phase9``): its ``--smoke`` (64², 1 spp through
    kernels 1 and 4) and one timed window of each of its six cells, each
    with its traced unit, roofline shares and parity gate, their lines
    printed;
@@ -823,7 +827,7 @@ def launch_counters():
     from cuda_optix_pathtracing_tpu_torch.utils import trace
 
     names = ("trace_paths_fused", "closest_bruteforce", "anyhit_bruteforce",
-             "bvh_closest_raw", "bvh_any_raw", "bounce_fused")
+             "bvh_closest_raw", "bvh_any_raw", "bounce_fused", "camera_rays")
 
     def zero():
         torch.cuda.synchronize()
@@ -835,6 +839,66 @@ def launch_counters():
         return {n: counts[f"launches.{n}"] for n in names}
 
     return zero, read
+
+
+def camera_kernel_phase(MK, MKC, scene, mesh, launches: dict, tag: str) -> dict:
+    """The camera kernel (``pt_camera_rays``, port-only: no TPU
+    counterpart) at its two main-path launches: the Cornell box's pass of
+    W·H rays (one spp, row-major, 40 B written a ray) and the mesh box's
+    pass of 16·W·H (Morton order, 48 B with the sample). Each is held to
+    ``camera_plain`` bit for bit and timed: device ms (CUDA events around
+    launches queued behind a device sleep; the profiler lost half the
+    records of this short kernel late in this process) against the bound
+    of its bytes, the wrapper call and the plain route (CUDA events).
+    ``launches`` holds, by label, ``launches.camera_rays`` of phase 3's
+    main-path render and its spp → the kernel's entry of the
+    ``{"kernels": ...}`` line."""
+    import torch
+
+    cfg = MK.MegakernelConfig()
+    out, err = {}, 0.0
+    for label, sc, nspp in (("cornell", scene, 1), ("mesh", mesh, MESH_SPP)):
+        n = W * H * nspp
+        got = MK.camera_batch(sc, cfg, W, H, 0, nspp)
+        want = MK.camera_plain(sc, cfg, W, H, 0, nspp)
+        torch.cuda.synchronize()
+        diff, gap = [], 0.0
+        for name, a, b in zip(("px", "py", "sample", "o", "d"), got, want):
+            if not torch.is_tensor(b):  # the sample of a one-spp pass: a Python int
+                same, a_gap = a == b, 0.0 if a == b else math.inf
+            else:
+                same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                a_gap = (float((a.double() - b.double()).abs().max()) if a.shape == b.shape
+                         else math.inf)
+            if not same:
+                diff.append(name)
+            gap = max(gap, a_gap)
+        err = max(err, gap)
+        check(not diff and got[6] == want[6],
+              f"camera kernel, {label} pass of {n} rays (Morton {got[6]}): keys and rays "
+              f"bit-equal to camera_plain (differ: {diff or 'none'}, max abs diff {gap})")
+        nbytes = n * (48 if nspp > 1 else 40)
+        b_ms = nbytes / HBM_BYTES_S * 1e3
+        morton = got[6]
+
+        def make_launch(sc=sc, nspp=nspp, morton=morton):
+            return lambda: MKC.camera_rays_fused(sc, W, H, 0, nspp, morton, cfg.seed, cfg.sampler)
+
+        ms = queued_ms(make_launch, n=10, reps=5)
+        call_ms = cuda_ms(lambda sc=sc, nspp=nspp: MK.camera_batch(sc, cfg, W, H, 0, nspp), 20)
+        plain_ms = cuda_ms(lambda sc=sc, nspp=nspp: MK.camera_plain(sc, cfg, W, H, 0, nspp), 5)
+        print(f"  pt_camera_rays ({label}, {n} rays, {nbytes // n} B a ray): {ms:.5f} ms on the "
+              f"device (10 queued launches), bound {b_ms:.5f} ms (bytes, {100 * b_ms / ms:.1f} % "
+              f"of it); {call_ms:.5f} ms per camera_batch call, plain route {plain_ms:.5f} ms; "
+              f"main-path render: {launches[label][0]} launches, "
+              f"{launches[label][0] / launches[label][1]:g}/spp {tag}")
+        out[label] = (ms, b_ms, plain_ms)
+    ms, b_ms, plain_ms = out["cornell"]
+    csrc = "cuda_optix_pathtracing_tpu_torch/csrc/"
+    return {"name": "pt_camera_rays", "route": "cuda", "source": csrc + "megakernel.cu",
+            "replaces": None, "launches": launches["cornell"][0], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+            "launches_1m": launches["mesh"][0], "ms_1m": out["mesh"][0], "bound_ms_1m": out["mesh"][1]}
 
 
 def check(cond: bool, what: str) -> None:
@@ -2259,6 +2323,8 @@ def main() -> int:
     launches_on = read()
     print(f"  render fused: {launches_on}")
     check(launches_on["trace_paths_fused"] > 0, "default render went through the fused kernel")
+    check(launches_on["camera_rays"] == SPP_FUSED,
+          f"default render took the camera kernel once a pass ({SPP_FUSED} passes)")
     check(bool(torch.isfinite(film_on.mean).all()), "fused film finite")
     check(float(film_on.mean.mean()) > 0.0, f"fused film mean {float(film_on.mean.mean()):.5f} > 0")
     mpaths = W * H * SPP_FUSED / dt_on / 1e6
@@ -2361,6 +2427,8 @@ def main() -> int:
     print(f"  render mesh fused='on' ({MESH_SPP} spp, one pass): {launches_mon}")
     check(launches_mon["trace_paths_fused"] == 1 and launches_mon["bvh_closest_raw"] == 0,
           "the mesh render with fused='on' went through the fused BVH kernel, one launch")
+    check(launches_mon["camera_rays"] == 1,
+          "the mesh render with fused='on' took the camera kernel once, for its one pass")
     check(bool(torch.isfinite(film_mon.mean).all()) and float(film_mon.mean.mean()) > 0.0,
           f"mesh fused='on' film finite, mean {float(film_mon.mean.mean()):.5f} > 0")
     check_means_agree("mesh fused='on' and fused='off'", film_mon, film_moff)
@@ -2817,6 +2885,9 @@ def main() -> int:
             "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bms,
             "bound_by": bby, "library_ms": None,
         })
+    camera_launches = {"cornell": (launches_on["camera_rays"], SPP_FUSED),
+                       "mesh": (launches_mon["camera_rays"], MESH_SPP)}
+    kernels.append(camera_kernel_phase(MK, MKC, scene, mesh, camera_launches, tag))
     print(f"  fused kernel work: {hits} hits shaded, {tests} ray-triangle tests for "
           f"{n1} paths ({flops_fused / n1:.0f} flop/path); any-hit: {any_tests / n1:.2f} "
           f"tests/ray of {n_tris}")
@@ -2910,7 +2981,12 @@ def main() -> int:
     scene_files_phase(MK, zero, read, tag, kernel_names)
     lights_instancing_phase(MK, zero, read, tag, kernel_names)
     parallel_wavefront_phase(MK, zero, read, tag)
-    bench_phase(tag)
+    # phase 9 in a process of its own: late in this one, after dozens of
+    # profiler sessions, the profiler kept no record of about half the
+    # kernels of a short session (11 of 20 camera launches, 9 of a mesh
+    # pass's 19 on an H100), and phase 9's traced units are short
+    script = os.path.abspath(__file__)
+    print(run_workers([[sys.executable, script, "--phase9", tag]], WORKER_TIMEOUT_S)[0], end="")
     print(f"  chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2919,9 +2995,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # phase 8 starts this script again as its worker processes
+    # phases 8 and 9 start this script again as their worker processes
     if sys.argv[1:2] == ["--phase8-rank"]:
         sys.exit(phase8_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--phase8-cli"]:
         sys.exit(phase8_cli(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--phase9"]:
+        bench_phase(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

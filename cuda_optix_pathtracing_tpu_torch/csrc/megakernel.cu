@@ -1,6 +1,8 @@
 // Path-tracing kernels for Hopper (sm_90a): the fused whole-path kernel in
-// brute-force and BVH modes, and the single-bounce kernel of the
-// depth-sorted wavefront.
+// brute-force and BVH modes, the single-bounce kernel of the
+// depth-sorted wavefront, and the camera kernel that writes a pass's rays
+// and keys (pt_camera_rays, port-only: the TPU renderer builds its camera
+// rays with XLA ops; it reuses the samplers below).
 //
 // Replaces the TPU kernel cuda_optix_pathtracing_tpu/models/megakernel_pallas.py
 // _pt_kernel, launched through pl.pallas_call:
@@ -1141,6 +1143,96 @@ __global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
   }
 }
 
+// ---- the camera stage (models/megakernel.py camera_batch) -----------------
+
+// The even bits of v, compacted: a 2-D Morton code's x (ops/morton.py puts x
+// in the even bits and y in the odd ones).
+__device__ __forceinline__ uint32_t compact1by1(uint32_t v) {
+  v &= 0x55555555u;
+  v = (v | (v >> 1)) & 0x33333333u;
+  v = (v | (v >> 2)) & 0x0F0F0F0Fu;
+  v = (v | (v >> 4)) & 0x00FF00FFu;
+  v = (v | (v >> 8)) & 0x0000FFFFu;
+  return v;
+}
+
+// Row m[0..3] of a row-major 4x4 matrix applied to (x, y, z, w) in the
+// plain transform's order ((m0 x + m1 y) + m2 z) + m3 w, where w is 1 for a
+// point and 0 for a vector (ops/vecmath.py): every product and sum rounded
+// on its own, as PyTorch's elementwise kernels round them, never an FMA.
+__device__ __forceinline__ float row_apply(const float* __restrict__ m, float x, float y,
+                                           float z, bool point) {
+  const float s = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m), x), __fmul_rn(__ldg(m + 1), y)),
+                            __fmul_rn(__ldg(m + 2), z));
+  return point ? __fadd_rn(s, __ldg(m + 3)) : s;
+}
+
+constexpr int kCameraBlock = 256;
+
+// One pass's camera rays, one thread a ray (no TPU kernel: the reference
+// builds them with XLA ops). Thread t of n = nspp * n_pix is sample
+// base + t / n_pix of slot p = t % n_pix; slot p is pixel (p % width,
+// p / width), or in Morton order the pixel whose Morton code is p (the
+// image a power-of-two square, where the codes are a bijection onto
+// [0, n_pix)). It writes the keys (px, py as int64; sample as int64 when
+// sample_out is given) and the ray through (x + u1, y + u2), u drawn at
+// Dim.CAMERA_U: the values of camera_batch's plain route with the box
+// filter, bit for bit (ops/camera.py generate_rays; normalize's rsqrt is
+// the approximate rsqrtf that torch.rsqrt runs on the card). The matrices
+// are read from device memory (rows 0-2 of each), so the host never waits
+// for them. Bound by the bytes written: 40 B a ray, 48 with the sample.
+template <class Smp>
+__global__ void __launch_bounds__(kCameraBlock)
+    pt_camera_rays_kernel(const float* __restrict__ cam_from_raster,
+                          const float* __restrict__ world_from_cam, int width, long long n_pix,
+                          long long n, bool morton, long long base, uint32_t seed, int qmc_dims,
+                          int64_t* __restrict__ px_out, int64_t* __restrict__ py_out,
+                          int64_t* __restrict__ sample_out, float* __restrict__ o_out,
+                          float* __restrict__ d_out) {
+  const long long t = (long long)blockIdx.x * kCameraBlock + threadIdx.x;
+  if (t >= n) return;
+  const long long s = t / n_pix, p = t - s * n_pix;
+  uint32_t x, y;
+  if (morton) {
+    x = compact1by1((uint32_t)p);
+    y = compact1by1((uint32_t)p >> 1);
+  } else {
+    x = (uint32_t)(p % width);
+    y = (uint32_t)(p / width);
+  }
+  const long long sample = base + s;
+  px_out[t] = x;
+  py_out[t] = y;
+  if (sample_out) sample_out[t] = sample;
+  const Smp rng(x, y, (uint32_t)sample, seed, qmc_dims);
+  const float2 u = rng.u2(0u);  // Dim.CAMERA_U
+  const float fx = __fadd_rn(__uint2float_rn(x), u.x);
+  const float fy = __fadd_rn(__uint2float_rn(y), u.y);
+  float pc[3], v[3];
+  for (int i = 0; i < 3; ++i) pc[i] = row_apply(cam_from_raster + 4 * i, fx, fy, 0.0f, true);
+  for (int i = 0; i < 3; ++i) {
+    o_out[3 * t + i] = row_apply(world_from_cam + 4 * i, 0.0f, 0.0f, 0.0f, true);
+    v[i] = row_apply(world_from_cam + 4 * i, pc[0], pc[1], pc[2], false);
+  }
+  const float l2 =
+      __fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])), __fmul_rn(v[2], v[2]));
+  const float r = l2 > 0.0f ? rsqrtf(fmaxf(l2, 1e-38f)) : 0.0f;
+  for (int i = 0; i < 3; ++i) d_out[3 * t + i] = __fmul_rn(v[i], r);
+}
+
+template <class Smp>
+int launch_camera(const float* cam_from_raster, const float* world_from_cam, int width,
+                  long long n_pix, long long n, bool morton, long long base, uint32_t seed,
+                  int qmc_dims, int64_t* px, int64_t* py, int64_t* sample, float* o, float* d,
+                  void* stream) {
+  const long long grid = (n + kCameraBlock - 1) / kCameraBlock;
+  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  pt_camera_rays_kernel<Smp><<<(unsigned)grid, kCameraBlock, 0, (cudaStream_t)stream>>>(
+      cam_from_raster, world_from_cam, width, n_pix, n, morton, base, seed, qmc_dims, px, py,
+      sample, o, d);
+  return (int)cudaGetLastError();
+}
+
 template <class K>
 int set_smem(K kernel, size_t smem) {
   if (smem > MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
@@ -1285,5 +1377,29 @@ extern "C" int pt_bounce_bvh(float* st, const int64_t* perm, int* keys, const fl
     return launch_bounce<HaltonRng>(geo, st, perm, keys, bounds, shade, n, n_mats,
                                     n_lights, n_em, depth, rr_start_depth, seed, qmc_dims,
                                     counter, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The camera rays of nspp samples (base, base + 1, ...) of every pixel of a
+// width x height image, in Morton order (morton != 0: a power-of-two square)
+// or row-major: cam_from_raster and world_from_cam the (4, 4) f32 matrices;
+// px, py (n,) int64, sample (n,) int64 or null, o, d (n, 3) f32, n = nspp *
+// width * height. Launches nothing for n = 0.
+extern "C" int pt_camera_rays(const float* cam_from_raster, const float* world_from_cam,
+                              int width, int height, int nspp, int morton, long long base,
+                              int sampler, uint32_t seed, int qmc_dims, int64_t* px,
+                              int64_t* py, int64_t* sample, float* o, float* d, void* stream) {
+  if (width < 0 || height < 0 || nspp < 0) return (int)cudaErrorInvalidValue;
+  if (morton && (width != height || (width & (width - 1)) != 0 || width > 65536))
+    return (int)cudaErrorInvalidValue;
+  const long long n_pix = (long long)width * height, n = n_pix * nspp;
+  if (n == 0) return 0;
+  if (sampler == 0)
+    return launch_camera<HashRng>(cam_from_raster, world_from_cam, width, n_pix, n, morton != 0,
+                                  base, seed, qmc_dims, px, py, sample, o, d, stream);
+  if (sampler == 1)
+    return launch_camera<HaltonRng>(cam_from_raster, world_from_cam, width, n_pix, n,
+                                    morton != 0, base, seed, qmc_dims, px, py, sample, o, d,
+                                    stream);
   return (int)cudaErrorInvalidValue;
 }

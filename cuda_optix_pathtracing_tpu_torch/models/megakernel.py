@@ -48,6 +48,9 @@ Camera samples: a box filter (uniform jitter in the pixel) or the
 Mitchell filter, importance-sampled through its tabulated CDF
 (``ops/filters.py``), each sample weighted by the filter's sign. Random
 numbers: the hash sampler or Owen-scrambled Halton (``ops/rng.py``).
+``camera_batch`` writes a CUDA scene's box-filtered camera rays and keys
+with one launch of the camera kernel (``camera_rays_fused``), any other
+camera batch with ``camera_plain``, the kernel's plain version.
 
 ``trace_paths`` with ``backend="torch"`` is the plain version of the fused
 kernel and of the intersection kernels.
@@ -1016,32 +1019,68 @@ def _use_morton(cfg, scene, width, height) -> bool:
     return False
 
 
+def _camera_kernel_route(dev, cfg: MegakernelConfig, sample, mats) -> bool:
+    """Does the camera kernel serve this pass: a CUDA scene, the box
+    filter, a Python int sample, and camera matrices ``mats`` that need no
+    gradient?"""
+    return (
+        dev.type == "cuda"
+        and cfg.pixel_filter == "box"
+        and isinstance(sample, int)
+        and not any(m.requires_grad for m in mats)
+    )
+
+
+def camera_plain(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
+    """``camera_batch``'s plain route, and the camera kernel's plain
+    version: pixel centres (gathered into Morton order on the host's
+    permutation), the sampler's keys and ``generate_rays``, op by op."""
+    dev = scene.device
+    pix = pixel_centers(width, height, dev)
+    morton = _use_morton(cfg, scene, width, height)
+    if morton:
+        pix = pix[torch.as_tensor(morton_pixel_order(width, height), device=dev)]
+    if nspp > 1:
+        pix = pix.repeat(nspp, 1)
+        sample = sample + torch.repeat_interleave(
+            torch.arange(nspp, dtype=torch.int64, device=dev), width * height
+        )
+    px = pix[:, 0].to(torch.int64)
+    py = pix[:, 1].to(torch.int64)
+    sampler = R.Sampler(cfg.sampler, cfg.seed)
+    u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
+    fw = None
+    if cfg.pixel_filter == "mitchell":
+        dx, dy, fw = sample_filter(filter_sampler(str(dev)), u1, u2)
+        p_film = pix + 0.5 + torch.stack([dx, dy], dim=-1)
+    else:
+        p_film = pix + torch.stack([u1, u2], dim=-1)
+    o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
+    return px, py, sample, o, d, fw, morton
+
+
 def camera_batch(scene: Scene, cfg: MegakernelConfig, width, height, sample, nspp: int = 1):
     """Camera rays of ``nspp`` samples of every pixel, in the render's
-    pixel order → (px, py, sample, o, d, filter weight or None, morton)."""
-    dev = scene.device
+    pixel order → (px, py, sample, o, d, filter weight or None, morton),
+    inside the span ``pt.camera``.
+
+    Two routes with the same values: one launch of the camera kernel
+    (``megakernel_cuda.camera_rays_fused``, counted as
+    ``launches.camera_rays``) for a CUDA scene with the box filter, a
+    Python int ``sample`` and camera matrices that need no gradient;
+    ``camera_plain`` otherwise (CPU scenes, the Mitchell filter, a tensor
+    ``sample``, matrices being optimised)."""
     with trace.span("pt.camera"):
-        pix = pixel_centers(width, height, dev)
+        mats = (scene.cam_from_raster, scene.world_from_cam)
+        if not _camera_kernel_route(scene.device, cfg, sample, mats):
+            return camera_plain(scene, cfg, width, height, sample, nspp)
+        from .megakernel_cuda import camera_rays_fused
+
         morton = _use_morton(cfg, scene, width, height)
-        if morton:
-            pix = pix[torch.as_tensor(morton_pixel_order(width, height), device=dev)]
-        if nspp > 1:
-            pix = pix.repeat(nspp, 1)
-            sample = sample + torch.repeat_interleave(
-                torch.arange(nspp, dtype=torch.int64, device=dev), width * height
-            )
-        px = pix[:, 0].to(torch.int64)
-        py = pix[:, 1].to(torch.int64)
-        sampler = R.Sampler(cfg.sampler, cfg.seed)
-        u1, u2 = sampler.sample_2d(px, py, sample, R.Dim.CAMERA_U)
-        fw = None
-        if cfg.pixel_filter == "mitchell":
-            dx, dy, fw = sample_filter(filter_sampler(str(dev)), u1, u2)
-            p_film = pix + 0.5 + torch.stack([dx, dy], dim=-1)
-        else:
-            p_film = pix + torch.stack([u1, u2], dim=-1)
-        o, d = generate_rays(p_film, scene.cam_from_raster, scene.world_from_cam)
-        return px, py, sample, o, d, fw, morton
+        px, py, sample, o, d = camera_rays_fused(
+            scene, width, height, sample, nspp, morton, cfg.seed, cfg.sampler
+        )
+        return px, py, sample, o, d, None, morton
 
 
 def batch_image(radiance, fw, morton: bool, width, height, nspp: int = 1):

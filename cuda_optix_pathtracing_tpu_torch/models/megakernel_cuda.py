@@ -20,8 +20,15 @@ that stays in slot order; the kernel writes each path's next sort key,
 one stable sort of the keys between depths gives the next launch its
 permutation. Like the reference, ``render()`` never takes it.
 
-Each launch adds 1 to the counter ``launches.trace_paths_fused`` or
-``launches.bounce_fused`` (``utils/trace.py``), and nothing else does.
+``camera_rays_fused`` writes one pass's camera rays and RNG keys in one
+launch of the camera kernel (``pt_camera_rays``). ``megakernel.camera_batch``
+takes it for CUDA scenes with the box filter, a Python int sample and
+camera matrices that need no gradient, and its plain route otherwise
+(``megakernel.camera_plain``, whose values the kernel writes bit for bit).
+
+Each launch adds 1 to the counter ``launches.trace_paths_fused``,
+``launches.bounce_fused`` or ``launches.camera_rays``
+(``utils/trace.py``), and nothing else does.
 
 Scope: Oren-Nayar, Lambert, GGX dielectric and conductor without
 textures; flat shading (no shading normals); point, spot and area lights
@@ -55,6 +62,7 @@ SAMPLERS = {"hash": 0, "halton": 1}  # the kernels' sampler codes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 _SAMPLER_ARGS = [_I, _U, _I]  # sampler code, seed, qmc_dims
 
 
@@ -68,6 +76,8 @@ def _lib():
     lib.pt_fused_bvh.restype = _I
     lib.pt_bounce_bvh.argtypes = [_P] * 5 + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_bounce_bvh.restype = _I
+    lib.pt_camera_rays.argtypes = [_P] * 2 + [_I] * 4 + [_L] + _SAMPLER_ARGS + [_P] * 6
+    lib.pt_camera_rays.restype = _I
     return lib
 
 
@@ -233,6 +243,46 @@ def trace_paths_fused(
             raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
         trace.count("launches.trace_paths_fused")
         return out
+
+
+def camera_rays_fused(
+    scene: Scene, width: int, height: int, sample: int, nspp: int = 1, morton: bool = False,
+    seed: int = 0, sampler: str = "hash", qmc_dims: int = R.QMC_DIMS,
+):
+    """One pass's camera rays in one launch of the camera kernel: ``nspp``
+    samples (``sample``, ``sample + 1``, ...) of every pixel, in Morton
+    order (a power-of-two square) or row-major, through the box filter →
+    (px, py, sample, o, d) with the values and dtypes of
+    ``megakernel.camera_plain``: (N,) int64 keys, N = max(nspp, 1)·W·H;
+    ``sample`` itself when nspp <= 1, else an (N,) int64 tensor; (N, 3)
+    float32 origins and unit directions. A CUDA scene with contiguous
+    float32 (4, 4) camera matrices only (the kernel reads them in place)."""
+    code = _sampler_code(sampler, qmc_dims)
+    mats = (scene.cam_from_raster, scene.world_from_cam)
+    dev = mats[0].device
+    if dev.type != "cuda":
+        raise ValueError("the camera kernel needs a CUDA scene")
+    if any(m.shape != (4, 4) or m.dtype != torch.float32 or not m.is_contiguous() for m in mats):
+        raise ValueError("the camera matrices must be contiguous (4, 4) float32")
+    width, height, nspp = int(width), int(height), max(int(nspp), 1)
+    n = nspp * width * height
+    px = torch.empty((n,), dtype=torch.int64, device=dev)
+    py = torch.empty((n,), dtype=torch.int64, device=dev)
+    keys = torch.empty((n,), dtype=torch.int64, device=dev) if nspp > 1 else None
+    o = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        base = (int(sample) + 2**63) % 2**64 - 2**63  # int64, the same low 32 bits
+        rc = _lib().pt_camera_rays(
+            mats[0].data_ptr(), mats[1].data_ptr(), width, height, nspp, int(morton), base,
+            code, seed & 0xFFFFFFFF, qmc_dims, px.data_ptr(), py.data_ptr(),
+            None if keys is None else keys.data_ptr(), o.data_ptr(), d.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc:
+            raise RuntimeError(f"camera kernel launch failed: CUDA error {rc}")
+        trace.count("launches.camera_rays")
+    return px, py, sample if keys is None else keys, o, d
 
 
 # ---------------------------------------------------------------------------

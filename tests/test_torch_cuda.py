@@ -842,3 +842,90 @@ def test_nan_guard_on_the_card(dev, scene):
     albedo[0, 0] = float("nan")
     with pytest.raises(FloatingPointError, match="NaN guard"):
         render(inject_params(scene, {"albedo": albedo}), 32, 32, 1, cfg=cfg, kspp=1)
+
+
+CAMERA_SEED = 2**31 + 12_345  # a large seed, as the benchmark's are
+
+
+def _same(a, b):
+    """Equal values and dtype, bit for bit (tensors) or equal (ints)."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return not torch.is_tensor(b) and a == b
+
+
+@pytest.mark.parametrize("base", [7, 2**32 - 5])  # the second wraps sample ^ seed past 2^32
+@pytest.mark.parametrize("nspp", [1, 16])
+@pytest.mark.parametrize("order,size", [("morton", (32, 32)), ("linear", (32, 32)),
+                                        ("linear", (40, 24))])
+@pytest.mark.parametrize("sampler", ["hash", "halton"])
+def test_camera_kernel_matches_plain(dev, scene, sampler, order, size, nspp, base):
+    """The camera kernel's keys and rays equal the plain route's bit for
+    bit (px, py, sample, o and d, dtypes too), in one launch a pass."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+
+    w, h = size
+    cfg = MK.MegakernelConfig(sampler=sampler, seed=CAMERA_SEED, pixel_order=order)
+    before = _launches("camera_rays")
+    got = MK.camera_batch(scene, cfg, w, h, base, nspp)
+    torch.cuda.synchronize()
+    assert _launches("camera_rays") == before + 1
+    want = MK.camera_plain(scene, cfg, w, h, base, nspp)
+    assert _launches("camera_rays") == before + 1
+    names = ("px", "py", "sample", "o", "d")
+    for name, a, b in zip(names, got[:5], want[:5]):
+        assert _same(a, b), name
+    assert got[5] is None and want[5] is None
+    assert got[6] == want[6] == (order == "morton")
+    assert got[3].shape == (max(nspp, 1) * w * h, 3)
+
+
+def test_camera_kernel_one_launch_a_pass(dev, scene, mesh):
+    """A render pass launches the camera kernel once (one spp a pass on
+    the Cornell box, 16 spp in one pass on the mesh); the Mitchell filter
+    and a tensor sample stay on the plain route; an empty image launches
+    nothing."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+
+    cfg = MK.MegakernelConfig(max_depth=2)
+    for sc, nspp in ((scene, 1), (mesh, 16)):
+        before = _launches("camera_rays")
+        img = MK.render_sample_batch(sc, cfg, 32, 32, 3, nspp=nspp)
+        assert _launches("camera_rays") == before + 1
+        assert bool(torch.isfinite(img).all())
+    before = _launches("camera_rays")
+    mitchell = MK.MegakernelConfig(pixel_filter="mitchell")
+    MK.camera_batch(scene, mitchell, 32, 32, 0)
+    MK.camera_batch(scene, cfg, 32, 32, torch.tensor(0, device=dev))
+    px, py, sample, o, d, fw, morton = MK.camera_batch(scene, cfg, 0, 32, 5, nspp=4)
+    assert _launches("camera_rays") == before
+    assert px.shape == (0,) and o.shape == (0, 3) and sample.shape == (0,)
+
+
+def test_camera_kernel_entry_point_errors(dev, scene, monkeypatch):
+    """pt_camera_rays returns a nonzero CUDA error for a sampler code that
+    names no instantiation, negative sizes and Morton order on an image
+    that is not a power-of-two square; the wrapper raises on a nonzero
+    return and refuses a CPU scene."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+    from cuda_optix_pathtracing_tpu_torch.scene import cornell_box
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = MKC._lib()
+    z = [None] * 5
+    for args in ((4, 4, 1, 0, 0, 7), (-1, 4, 1, 0, 0, 0), (4, 4, -1, 0, 0, 0),
+                 (6, 6, 1, 1, 0, 0), (8, 4, 1, 1, 0, 0)):
+        w, h, nspp, morton, base, code = args
+        assert lib.pt_camera_rays(None, None, w, h, nspp, morton, base, code, 0, 12,
+                                  *z, stream) != 0
+    torch.cuda.synchronize()
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *args: 700
+
+    monkeypatch.setattr(MKC, "_lib", lambda: Failing())
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        MKC.camera_rays_fused(scene, 32, 32, 0)
+    with pytest.raises(ValueError, match="CUDA scene"):
+        MKC.camera_rays_fused(cornell_box(8, 8, device="cpu"), 8, 8, 0)

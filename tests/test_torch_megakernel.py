@@ -173,6 +173,41 @@ def test_morton_order_same_image():
     np.testing.assert_array_equal(one.numpy(), linear[1].numpy())
 
 
+@pytest.mark.parametrize("case", ["cpu", "mitchell", "tensor_sample", "grad_matrix", "kernel"])
+def test_camera_batch_routes(case, monkeypatch):
+    """``camera_batch`` takes the camera kernel only for a CUDA scene with
+    the box filter, a Python int sample and camera matrices that need no
+    gradient (``kernel``, the control); each other case alone sends it to
+    the plain route. The CUDA condition is probed through the device the
+    route is asked about (the kernel runs only on a card); on the CPU each
+    case returns exactly ``camera_plain``'s values and calls no kernel."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel_cuda as MKC
+
+    scene = cornell_box_mesh(16, 16, subdiv=4, use_bvh=True, device="cpu")
+    if case == "grad_matrix":
+        scene = scene._replace(world_from_cam=scene.world_from_cam.clone().requires_grad_(True))
+    cfg = MegakernelConfig(pixel_filter="mitchell" if case == "mitchell" else "box")
+    sample = torch.tensor(3) if case == "tensor_sample" else 3
+    mats = (scene.cam_from_raster, scene.world_from_cam)
+    dev = scene.device if case == "cpu" else torch.device("cuda")
+    assert MK._camera_kernel_route(dev, cfg, sample, mats) == (case == "kernel")
+
+    calls = []
+    monkeypatch.setattr(MKC, "camera_rays_fused", lambda *a, **k: calls.append(a))
+    got = MK.camera_batch(scene, cfg, 16, 16, sample, nspp=2)
+    want = MK.camera_plain(scene, cfg, 16, 16, sample, nspp=2)
+    assert not calls
+    assert got[6] == want[6] is True  # Morton order: a BVH scene, 16 x 16
+    for a, b in zip(got[:6], want[:6]):
+        if b is None:
+            assert a is None
+        else:
+            assert a.dtype == b.dtype and torch.equal(a.detach(), b.detach())
+    assert (got[5] is not None) == (case == "mitchell")
+    assert got[4].requires_grad == (case == "grad_matrix")
+
+
 @pytest.mark.parametrize("case", ["cornell_case", "mesh_case"])
 def test_resolve_fused(request, case):
     t_scene = request.getfixturevalue(case)[0]
