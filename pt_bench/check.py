@@ -1,5 +1,6 @@
 """The comparison that decides ``correct``: what the timed path produced,
-against the plain reference in ``pt_bench/reference``, which works
+against the plain reference, the module of ``pt_bench/reference`` that the
+cell's configuration names (``harness.reference_module``), which works
 everything out again from the benchmark's own scene spec.
 
 Render cells. The window's answers are its progressive films. The window's
@@ -38,9 +39,6 @@ import math
 
 import torch
 
-from .reference import integrator as RI
-from .reference import rng as RR
-
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
@@ -59,7 +57,7 @@ def _gaps(after_mean, after_n, ref_mean, batch_mean, kspp):
     return (d / (b + b.mean())).flatten()
 
 
-def _reference_batches(ref_scene, sampler, batches, cfg, mix, seed, dtype=torch.float32):
+def _reference_batches(reference, ref_scene, sampler, batches, cfg, mix, seed):
     """The reference's film after each checked batch at its pixels →
     [(px, py, (mean, m2, n), batch mean)]."""
     out = []
@@ -68,22 +66,24 @@ def _reference_batches(ref_scene, sampler, batches, cfg, mix, seed, dtype=torch.
                               ref_scene.v0.device)
         start = None if before is None else tuple(
             x[py, px] for x in (before.mean, before.m2)) + (before.n,)
-        film, bmean = RI.film_batch(ref_scene, sampler, px, py, sample0, mix["kspp"],
-                                    mix["spp_per_pass"], cfg["max_depth"], before=start)
+        film, bmean = reference.film_batch(ref_scene, sampler, px, py, sample0, mix["kspp"],
+                                           mix["spp_per_pass"], cfg["max_depth"], before=start)
         out.append((px, py, film, bmean))
     return out
 
 
-def render_numbers(spec, cfg, mix, seed, batches, device, control: bool = False) -> dict:
-    """The render cell's numbers for the checked ``batches`` [(sample0,
-    film before or None, film after)]; with ``control`` for the bfloat16
-    reference in the program's place."""
-    ref = RI.make_scene(spec, device)
-    refs = _reference_batches(ref, RR.HashSampler(seed), batches, cfg, mix, seed)
+def render_numbers(reference, spec, cfg, mix, seed, batches, device,
+                   control: bool = False) -> dict:
+    """The render cell's numbers against the ``reference`` module for the
+    checked ``batches`` [(sample0, film before or None, film after)]; with
+    ``control`` for that reference in bfloat16 in the program's place."""
+    sampler = reference.SAMPLERS[cfg["sampler"]]
+    ref = reference.make_scene(spec, device)
+    refs = _reference_batches(reference, ref, sampler(seed), batches, cfg, mix, seed)
     if control:
-        low = RI.make_scene(spec, device, torch.bfloat16)
-        lows = _reference_batches(low, RR.HashSampler(seed, torch.bfloat16), batches, cfg, mix,
-                                  seed)
+        low = reference.make_scene(spec, device, torch.bfloat16)
+        lows = _reference_batches(reference, low, sampler(seed, torch.bfloat16), batches, cfg,
+                                  mix, seed)
     gaps, count_gap = [], 0.0
     for j, ((px, py, film, bmean), (sample0, before, after)) in enumerate(zip(refs, batches)):
         if control:
@@ -107,11 +107,12 @@ def _adam(p, g, m, v, t, lr):
     return p - lr * mhat / (torch.sqrt(vhat) + ADAM_EPS), m, v
 
 
-def reference_steps(spec, cfg, mix, seed, device, dtype=torch.float32, steps: int = 3):
-    """The reference's first ``steps`` steps from its own albedo →
-    (losses, first gradient, parameters before, parameters after)."""
-    scene = RI.make_scene(spec, device, dtype)
-    sampler = RR.HashSampler(seed, dtype)
+def reference_steps(reference, spec, cfg, mix, seed, device, dtype=torch.float32,
+                    steps: int = 3):
+    """The ``reference`` module's first ``steps`` steps from its own albedo
+    → (losses, first gradient, parameters before, parameters after)."""
+    scene = reference.make_scene(spec, device, dtype)
+    sampler = reference.SAMPLERS[cfg["sampler"]](seed, dtype)
     p = scene.materials.albedo.clone()
     p0 = p.clone()
     m = torch.zeros_like(p)
@@ -119,8 +120,8 @@ def reference_steps(spec, cfg, mix, seed, device, dtype=torch.float32, steps: in
     losses, g1 = [], None
     for k in range(steps):
         leaf = p.detach().clone().requires_grad_(True)
-        loss = RI.image_loss(scene, sampler, leaf, k * mix["spp"], mix["spp"], cfg["width"],
-                             cfg["height"], cfg["max_depth"], mix["target"])
+        loss = reference.image_loss(scene, sampler, leaf, k * mix["spp"], mix["spp"],
+                                    cfg["width"], cfg["height"], cfg["max_depth"], mix["target"])
         g = leaf.grad.detach()
         g1 = g if g1 is None else g1
         losses.append(loss)
@@ -132,14 +133,17 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b) if b != 0.0 else (0.0 if a == 0.0 else math.inf)
 
 
-def grad_numbers(spec, cfg, mix, seed, got, device, control: bool = False) -> dict:
-    """The gradient cell's numbers for the program's readings ``got``
-    (losses, first gradient, parameters before, parameters after); with
-    ``control`` for the bfloat16 reference in the program's place."""
+def grad_numbers(reference, spec, cfg, mix, seed, got, device, control: bool = False) -> dict:
+    """The gradient cell's numbers against the ``reference`` module for the
+    program's readings ``got`` (losses, first gradient, parameters before,
+    parameters after); with ``control`` for that reference in bfloat16 in
+    the program's place."""
     steps = len(got[0])
-    r_loss, r_g1, r_p0, r_p3 = reference_steps(spec, cfg, mix, seed, device, steps=steps)
+    r_loss, r_g1, r_p0, r_p3 = reference_steps(reference, spec, cfg, mix, seed, device,
+                                               steps=steps)
     if control:
-        got = reference_steps(spec, cfg, mix, seed, device, torch.bfloat16, steps=steps)
+        got = reference_steps(reference, spec, cfg, mix, seed, device, torch.bfloat16,
+                              steps=steps)
     p_loss, p_g1, p_p0, p_p3 = got
     norm = lambda x: float(torch.linalg.vector_norm(x.double()))  # noqa: E731
     return {

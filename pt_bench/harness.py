@@ -5,6 +5,10 @@ harness finds each by name:
 
 - the configuration: the file the manifest gives it (``configs/<name>.json``),
   whose ``scene`` names a builder in ``scenes/<scene>.py``;
+- the plain reference that decides ``correct`` and counts the work of the
+  roofline shares: the module ``reference/<reference>.py`` that the
+  configuration's ``reference`` names, ``integrator`` where it names none;
+  what such a module provides is written in ``reference/__init__.py``;
 - the traffic mix: ``traffic/<mix>.json``, whose ``kind`` is ``render``
   (progressive batches into one film) or ``grad`` (steps of an image loss's
   gradient under Adam), read by the one generator below;
@@ -13,10 +17,12 @@ harness finds each by name:
 
 A run: set-up (kernels built or loaded, scene built, warm units), then a
 window of ``seconds`` (``--trace 0``: the end-to-end metrics by the host
-clock) or a traced window of the mix's ``trace_units`` units beside an
-untraced one of as many (``--trace 1``: the per-layer metrics); the peak
-device memory; the program's state freed; then the comparison with the
-plain reference (``check.py``) on what the window produced.
+clock) or, for a render, an untraced stretch of ``RATE_SECONDS`` whose
+samples are rendered again after it, and a traced window of the mix's
+``trace_units`` units beside an untraced one of as many (``--trace 1``:
+the per-layer metrics); the peak device memory; the program's state
+freed; then the comparison with the plain reference (``check.py``) on
+what the window produced.
 
 The port is reached only through its entry points: ``scene_from_host``,
 ``MegakernelConfig``, ``resolve_fused``, ``render_progressive``,
@@ -27,22 +33,25 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
+import importlib
 import importlib.util
 import json
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 
 import torch
 
 from . import check, stats, work
-from .reference import integrator as RI
-from .reference import rng as RR
 
 ROOT = Path(__file__).resolve().parent.parent
 CUDA_SOURCES = ("intersect", "megakernel", "bvh")
 FORBIDDEN = ("jax", "jaxlib", "flax", "cuda_optix_pathtracing_tpu")
 RECKON_PATHS = 2048  # sampled paths of the traced window whose work is counted
+RATE_SECONDS = 2.0  # least untraced stretch of a traced render run, timed for its rate
+DEFAULT_REFERENCE = "integrator"
 
 
 @dataclasses.dataclass
@@ -55,6 +64,7 @@ class Cell:
     end_to_end: list  # the manifest's metric entries this cell reports
     per_layer: list
     root: Path
+    reference: ModuleType  # the configuration's plain reference
 
     @property
     def bench(self) -> Path:
@@ -73,19 +83,44 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         raise KeyError(f"no workload {name!r} in {root / 'BENCHMARK.json'}")
     c = next(c for c in manifest["configs"] if c["name"] == w["config"])
     read = lambda p: json.loads(Path(p).read_text())  # noqa: E731
-    return Cell(name, w["chips"], read(root / c["file"]),
+    config = read(root / c["file"])
+    return Cell(name, w["chips"], config,
                 read(root / "pt_bench" / "traffic" / f"{w['traffic']}.json"),
                 read(root / "pt_bench" / "limits" / f"{name}.json"),
                 [m for m in manifest["end_to_end"] if _reports(m, name)],
-                [m for m in manifest["per_layer"] if _reports(m, name)], root)
+                [m for m in manifest["per_layer"] if _reports(m, name)], root,
+                reference_module(root / "pt_bench", c["name"], config))
 
 
-def _module(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
+def _module(path: Path, name: str, package: list | None = None):
+    spec = importlib.util.spec_from_file_location(name, path,
+                                                  submodule_search_locations=package)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference_module(bench: Path, config_name: str, config: dict) -> ModuleType:
+    """The plain reference module that configuration ``config_name``
+    names (its ``reference``, ``DEFAULT_REFERENCE`` where it names none),
+    from ``bench/reference``, which is loaded once a process as a package
+    of its own. Refuses a module that is not there and a configuration
+    whose ``sampler`` the module does not give."""
+    name = config.get("reference", DEFAULT_REFERENCE)
+    where = bench / "reference"
+    if not (isinstance(name, str) and name.isidentifier() and (where / f"{name}.py").is_file()):
+        raise ValueError(f"configuration {config_name!r}: its reference {name!r} names no "
+                         f"module in {where}")
+    package = "pt_bench_reference_" + hashlib.sha1(str(where.resolve()).encode()).hexdigest()[:12]
+    if package not in sys.modules:
+        _module(where / "__init__.py", package, [str(where)])
+    ref = importlib.import_module(f"{package}.{name}")
+    if config["sampler"] not in ref.SAMPLERS:
+        raise ValueError(f"configuration {config_name!r}: its sampler {config['sampler']!r} "
+                         f"is none that its reference module {name!r} gives "
+                         f"({', '.join(sorted(ref.SAMPLERS))})")
+    return ref
 
 
 def scene_spec(cell: Cell):
@@ -179,8 +214,8 @@ class Render:
                 return lat, kept
 
     def numbers(self, spec, kept, control: bool = False) -> dict:
-        return check.render_numbers(spec, self.cell.config, self.cell.mix, self.seed, kept,
-                                    self.device, control)
+        return check.render_numbers(self.cell.reference, spec, self.cell.config, self.cell.mix,
+                                    self.seed, kept, self.device, control)
 
     def free(self) -> None:
         self.scene = self.mk_cfg = None
@@ -242,8 +277,8 @@ class Grad:
                 return lat, []
 
     def numbers(self, spec, kept, control: bool = False) -> dict:
-        return check.grad_numbers(spec, self.cell.config, self.cell.mix, self.seed, self.got,
-                                  self.device, control)
+        return check.grad_numbers(self.cell.reference, spec, self.cell.config, self.cell.mix,
+                                  self.seed, self.got, self.device, control)
 
     def free(self) -> None:
         self.loss = self.params = self.opt = None
@@ -272,14 +307,15 @@ def _keep_drawn(cell: Cell, seed: int, start: float, seconds: float):
 
 
 def reckon(cell: Cell, spec, seed: int, sample0: int, device) -> work.Reckoning:
-    """The work per path of the traced window, counted on the reference's
-    paths of ``RECKON_PATHS`` pixels drawn from the seed at its first
-    sample, and the benchmark's own BVH walked over their queries."""
-    ref = RI.make_scene(spec, device)
-    cfg = cell.config
+    """The work per path of the traced window, counted on the cell's
+    reference's paths of ``RECKON_PATHS`` pixels drawn from the seed at its
+    first sample, and the benchmark's own BVH walked over their queries."""
+    reference, cfg = cell.reference, cell.config
+    ref = reference.make_scene(spec, device)
     px, py = check.check_pixels(seed, -1, cfg["width"], cfg["height"], RECKON_PATHS, device)
-    w = RI.Work(keep_rays=True)
-    RI.pixel_samples(ref, RR.HashSampler(seed), px, py, sample0, 1, cfg["max_depth"], work=w)
+    w = reference.Work(keep_rays=True)
+    reference.pixel_samples(ref, reference.SAMPLERS[cfg["sampler"]](seed), px, py, sample0, 1,
+                            cfg["max_depth"], work=w)
     r = work.Reckoning(triangles=int(ref.v0.shape[0]), closest_rays=w.closest_rays / w.paths,
                        hits=w.hits / w.paths, shadow_rays=w.shadow_rays / w.paths,
                        shadow_tests=w.shadow_tests / w.paths)
@@ -309,6 +345,8 @@ class TraceRecord:
     reckoning: work.Reckoning
     scene_build_s: float
     kernel_load_s: float
+    rate_paths: int = 0  # paths of a render's untraced stretch of RATE_SECONDS
+    rate_s: float = 0.0  # its wall
 
 
 def read_per_layer(cell: Cell, rec: TraceRecord) -> dict:
@@ -373,6 +411,15 @@ def run(name: str, seed: int, seconds: float, trace: bool, device="cuda", t_star
     else:
         from . import devtrace
 
+        rate_paths, rate_s = 0, 0.0
+        if traffic.kind == "render":
+            # whole batches for RATE_SECONDS, before the profiler has run; the
+            # windows below render the same samples again, as without them
+            s0, t0 = traffic.sample, time.perf_counter()
+            rate_lat, _ = traffic.run(lambda k, now: now - t0 >= RATE_SECONDS,
+                                      lambda k, t: False)
+            rate_s, rate_paths = time.perf_counter() - t0, len(rate_lat) * traffic.unit_paths
+            traffic.sample = s0
         n = cell.mix["trace_units"]
         t0 = time.perf_counter()
         traffic.run(lambda k, now: k >= n, lambda k, t: False)
@@ -387,7 +434,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device="cuda", t_star
         units = len(lat)
         rec = TraceRecord(traffic.kind, units, traffic.unit_spp, units * traffic.unit_paths,
                           wall, tr, reckon(cell, spec, seed, traffic.sample, device),
-                          scene_build_s, kernel_load_s)
+                          scene_build_s, kernel_load_s, rate_paths, rate_s)
         metrics = read_per_layer(cell, rec)
         dev_extra = {"busy_s": tr.busy_s, "window_s": tr.window_s}
         breakdown = {"device_ops": tr.device_ops, "idle_gaps": tr.idle_gaps}

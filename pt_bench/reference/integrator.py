@@ -25,6 +25,9 @@ from . import geometry as G
 from . import rng as R
 from . import shading as S
 
+# the configuration's ``sampler`` → the sampler of this estimator
+SAMPLERS = {"hash": R.HashSampler}
+
 
 class RefScene(NamedTuple):
     v0: torch.Tensor

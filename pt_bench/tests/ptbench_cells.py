@@ -27,23 +27,46 @@ CELLS = {
 }
 
 
+def _manifest(root: Path, edit) -> None:
+    path = root / "BENCHMARK.json"
+    manifest = json.loads(path.read_text())
+    edit(manifest)
+    path.write_text(json.dumps(manifest))
+
+
+def add_config(root: Path, name: str, config: dict) -> None:
+    """Configuration ``name`` as ``configs/<name>.json`` and its entry."""
+    (root / "pt_bench" / "configs" / f"{name}.json").write_text(json.dumps(config))
+    _manifest(root, lambda m: m["configs"].append(
+        dict(name=name, source="tests", reduced=[], why="tests",
+             file=f"pt_bench/configs/{name}.json")))
+
+
+def add_cell(root: Path, cell: str, config: str, mix: str, real: str) -> None:
+    """Cell ``cell`` of ``config`` under traffic ``mix``, held to the limits
+    of the real cell ``real`` and reporting its metrics."""
+    shutil.copy(root / "pt_bench" / "limits" / f"{real}.json",
+                root / "pt_bench" / "limits" / f"{cell}.json")
+
+    def edit(manifest):
+        manifest["workloads"].append(dict(name=cell, config=config, traffic=mix, chips=1,
+                                          why="tests"))
+        for m in manifest["end_to_end"] + manifest["per_layer"]:
+            if "workloads" in m and real in m["workloads"]:
+                m["workloads"].append(cell)
+
+    _manifest(root, edit)
+
+
 def make_root(tmp: Path) -> Path:
     """A copy of the benchmark under ``tmp`` with the tiny cells added."""
     bench = tmp / "pt_bench"
     shutil.copytree(ROOT / "pt_bench", bench,
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
-    (bench / "configs" / "tiny.json").write_text(json.dumps(TINY))
-    manifest["configs"].append(dict(name="tiny", source="tests", reduced=[], why="tests",
-                                    file="pt_bench/configs/tiny.json"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    add_config(tmp, "tiny", TINY)
     for name, mix in MIXES.items():
         (bench / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     for cell, (mix, real) in CELLS.items():
-        shutil.copy(bench / "limits" / f"{real}.json", bench / "limits" / f"{cell}.json")
-        manifest["workloads"].append(dict(name=cell, config="tiny", traffic=mix, chips=1,
-                                          why="tests"))
-        for m in manifest["end_to_end"] + manifest["per_layer"]:
-            if "workloads" in m and real in m["workloads"]:
-                m["workloads"].append(cell)
-    (tmp / "BENCHMARK.json").write_text(json.dumps(manifest))
+        add_cell(tmp, cell, "tiny", mix, real)
     return tmp

@@ -77,9 +77,47 @@ def test_cell_from_files_alone_runs(root, cell):
 def test_traced_run_reads_per_layer_metrics(root):
     r = harness.run("tiny.render", 5, 0.5, True, device="cpu", root=root)
     assert r["correct"] is True
-    # no device on the CPU: only the set-up readers find something to read
-    assert set(r["metrics"]) == {"scene_build_s", "kernel_load_s"}
+    # no device on the CPU: only the host-clock readers find something to read
+    assert set(r["metrics"]) == {"scene_build_s", "kernel_load_s", "mpaths_s.2s"}
+    assert r["metrics"]["mpaths_s.2s"]["value"] > 0
     assert "device_ops" in r["breakdown"] and "window_s" in r["device"]
+
+
+def test_rate_stretch_moves_no_other_reading(root, monkeypatch):
+    # one batch or a second of them before the traced window: the windows
+    # after it render the same samples, and the checks read the same
+    runs, traffic = [], []
+    for seconds in (0.0, 1.0):
+        monkeypatch.setattr(harness, "RATE_SECONDS", seconds)
+        runs.append(harness.run("tiny.render", 9, 0.5, True, device="cpu", root=root,
+                                traffic_hook=traffic.append))
+    assert traffic[0].sample == traffic[1].sample
+    assert runs[0]["checks"] == runs[1]["checks"]
+    assert runs[0]["attempted"] == runs[1]["attempted"]
+
+
+def test_manifest_metrics_have_readers_and_move_what_their_cells_report():
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cells = [w["name"] for w in manifest["workloads"]]
+    for cell in cells:
+        loaded = harness.load_cell(cell)
+        reported = {m["name"] for m in loaded.end_to_end}
+        assert "setup_s" in reported and len(reported) >= 2, cell
+        assert loaded.per_layer, cell
+        for m in loaded.per_layer:
+            assert m["moves"] in reported, (cell, m["name"])
+    for m in manifest["per_layer"]:
+        assert (ROOT / "pt_bench" / "metrics" / f"{m['name']}.py").is_file(), m["name"]
+        assert set(m.get("workloads", cells)) <= set(cells), m["name"]
+
+
+@pytest.mark.parametrize("kind, paths, seconds, want", [
+    ("render", 8_000_000, 2.0, 4.0), ("render", 0, 2.0, 0.0), ("render", 10, 0.0, None),
+    ("grad", 8_000_000, 2.0, None)])
+def test_rate_of_the_untraced_stretch(kind, paths, seconds, want):
+    reader = harness._module(ROOT / "pt_bench" / "metrics" / "mpaths_s.2s.py", "rate_reader")
+    rec = harness.TraceRecord(kind, 1, 1, 1, 1.0, None, None, 0.0, 0.0, paths, seconds)
+    assert reader.read(rec) == want
 
 
 def test_run_imports_nothing_forbidden(root):
