@@ -622,6 +622,16 @@ def _normal_mapped(scene: Scene, mat, hit, suv: SurfaceUV, ns, cone_w):
     return torch.where(use[:, None], n_new, ns)
 
 
+def _count_texture_rows(mat, alive) -> None:
+    """The rows handed to the texture fetches, every row once per map
+    (``tex.query``), and, while recording, those of a live path whose
+    material has that map (``tex.live``)."""
+    ids = (mat.albedo_tex, mat.rough_tex, mat.normal_tex)
+    trace.count("tex.query", len(ids) * alive.shape[0])
+    if trace.is_recording():
+        trace.count_device("tex.live", (torch.stack(ids) >= 0) & alive)
+
+
 def _shading_normal(scene: Scene, hit):
     """Barycentric interpolation of the per-corner shading normals,
     aligned with the incident-side geometric normal; the geometric normal
@@ -851,11 +861,14 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
             mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64), textured=textured)
             ns = _shading_normal(scene, hit)
             if textured:
-                # the ray cone's width at the hit drives the mip selection
-                cone_at_hit = state.cone_w + state.cone_s * torch.abs(hit.t)
-                suv = _uv_at_hit(scene, hit)
-                mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
-                ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
+                with trace.span("pt.texture"):
+                    # the ray cone's width at the hit drives the mip selection
+                    cone_at_hit = state.cone_w + state.cone_s * torch.abs(hit.t)
+                    suv = _uv_at_hit(scene, hit)
+                    mat = _textured_mat(scene, cfg, mat, hit, suv, cone_at_hit, wo)
+                    ns = _normal_mapped(scene, mat, hit, suv, ns, cone_at_hit)
+                # outside pt.texture, so the span holds the fetches alone
+                _count_texture_rows(mat, alive)
             use_tree = _tree_on(cfg, scene)
             if scene.emissive is not None:
                 # directly-hit emitter, MIS-weighted against the NEE estimator

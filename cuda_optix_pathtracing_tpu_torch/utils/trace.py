@@ -13,11 +13,19 @@ reads an environment variable or a flag of the CLI.
   gets the suffix ``:replay``.
 - **Counters**: one registry of named counts. ``count`` adds a Python
   int and is always on (the kernel wrappers' ``launches.<wrapper>``, the
-  rays handed to the intersection queries, ``rays.query``).
-  ``count_device`` adds the elements of a device tensor that are nonzero
-  into one device accumulator per name, only while recording; nothing is
-  read back until ``snapshot()``, so no count synchronises the device on
-  the hot path.
+  rays handed to the intersection queries, ``rays.query``, and the rows
+  handed to the texture fetches, ``tex.query``). ``count_device`` adds
+  the elements of a device tensor that are nonzero into one device
+  accumulator per name, only while recording (``rays.live``, ``tex.live``);
+  nothing is read back until ``snapshot()``, so no count synchronises the
+  device on the hot path. ``is_recording()`` guards the work of building
+  such a tensor.
+
+The port's spans: ``pt.batch`` > ``pt.pass`` > ``pt.camera``, ``pt.fused``
+or ``pt.trace`` > ``pt.bounce`` > ``pt.closest``, ``pt.shade`` (>
+``pt.texture`` in textured scenes), ``pt.nee`` > ``pt.shadow``,
+``pt.bsdf``; ``pt.raysort`` under the queries; ``pt.film``; ``pt.loss`` >
+``pt.inject`` in a gradient step.
 
 A recipe that records a render's spans and kernels into one chrome trace
 is in the README.
@@ -56,6 +64,11 @@ def span(name: str, **args):
         name += ":replay"
     detail = ",".join(f"{k}={v}" for k, v in args.items()) or None
     return torch.profiler.record_function(name, detail)
+
+
+def is_recording() -> bool:
+    """Is recording on?"""
+    return _recording
 
 
 def count(name: str, n: int = 1) -> None:

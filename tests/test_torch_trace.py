@@ -154,3 +154,129 @@ def test_ray_counters_equal_hand_counts(scene, monkeypatch):
     counts = trace.snapshot()
     assert counts["rays.query"] == 2 * DEPTH * n and counts["rays.live"] == 0
     trace.reset()
+
+
+@pytest.fixture(scope="module")
+def teapot():
+    """``scenes/scene_test.json`` at 8², its material's normal map taken
+    out: the fetch still runs for every row, but only the albedo and
+    roughness maps are the material's own."""
+    import dataclasses
+    import os
+
+    from cuda_optix_pathtracing_tpu_torch.scene.parser import parse_scene
+    from cuda_optix_pathtracing_tpu_torch.scene.types import scene_from_host
+
+    hs, _ = parse_scene(os.path.join(os.path.dirname(__file__), "..", "scenes", "scene_test.json"))
+    hs.camera = dataclasses.replace(hs.camera, width=8, height=8)
+    assert [hs.materials[0][k] for k in ("albedo_tex", "rough_tex", "normal_tex")] == [0, 2, 1]
+    hs.materials[0] = {k: v for k, v in hs.materials[0].items() if k != "normal_tex"}
+    return scene_from_host(hs, device="cpu")
+
+
+def _teapot_cfg():
+    return MK.MegakernelConfig(max_depth=DEPTH, fused="off", tri_chunk=1024)
+
+
+def _teapot_trace(teapot):
+    cfg = _teapot_cfg()
+    px, py, sample, o, d, _, _ = MK.camera_batch(teapot, cfg, 8, 8, 0)
+    return MK.trace_paths(teapot, cfg, px, py, sample, o, d, device="cpu")
+
+
+def test_texture_span_opens_once_a_bounce_under_shade(scene, teapot):
+    with trace.recording():
+        roots = _tree(_profiled(lambda: _teapot_trace(teapot)))
+        cornell = Counter(e.name for e in _profiled(lambda: _render(scene, kspp=1)))
+    assert _names(roots) == ["pt.camera", "pt.trace"]
+    bounces = roots[1][1]
+    assert _names(bounces) == ["pt.bounce"] * DEPTH
+    for _, steps in bounces:
+        assert _names(steps) == ["pt.closest", "pt.shade", "pt.nee", "pt.bsdf"]
+        assert _names(steps[1][1]) == ["pt.texture"]
+        assert not steps[1][1][0][1]  # no span inside it
+    assert cornell["pt.shade"] == DEPTH and cornell["pt.texture"] == 0
+
+
+def test_texture_counters_equal_hand_counts(teapot, monkeypatch):
+    """``tex.query``: every row of every bounce, once for each of the three
+    fetches; ``tex.live``: the rows of live paths that hit, once for each
+    map their material has (two here), which only a recording counts."""
+    cfg = _teapot_cfg()
+    px, py, sample, o, d, _, _ = MK.camera_batch(teapot, cfg, 8, 8, 0)
+    n = o.shape[0]
+    live_hits = []
+    closest = MK._closest
+
+    def spy(scene, cfg, o, d, alive=None):
+        hit = closest(scene, cfg, o, d, alive=alive)
+        live_hits.append(int((alive & hit.hit).sum()))
+        return hit
+
+    with monkeypatch.context() as m:
+        m.setattr(MK, "_closest", spy)
+        state = MK.camera_path_state(teapot, cfg, o, d)
+        sampler = R.Sampler(cfg.sampler, cfg.seed)
+        for depth in range(DEPTH):
+            state = MK.bounce_step(teapot, cfg, sampler, px, py, sample, depth, state)
+    assert len(live_hits) == DEPTH and n > live_hits[0] >= live_hits[-1] > 0  # misses, deaths
+
+    trace.reset()
+    with trace.recording():
+        radiance = MK.trace_paths(teapot, cfg, px, py, sample, o, d, device="cpu")
+        counts = trace.snapshot()
+    assert torch.equal(radiance, state.radiance)
+    assert counts["tex.query"] == 3 * DEPTH * n
+    assert counts["tex.live"] == 2 * sum(live_hits)
+
+    trace.reset()
+    MK.trace_paths(teapot, cfg, px, py, sample, o, d, device="cpu")
+    counts = trace.snapshot()
+    assert counts["tex.query"] == 3 * DEPTH * n and counts["tex.live"] == 0
+    trace.reset()
+
+
+def test_textured_bounce_adds_no_op_while_off(teapot, monkeypatch):
+    """Off: the textured bounce runs the same ATen ops as with the span and
+    the texture counters taken out, and no ``pt.`` event."""
+    ops = _ops(lambda: _teapot_trace(teapot))
+    assert not [name for name in ops if name.startswith("pt.")]
+    with monkeypatch.context() as m:
+        m.setattr(trace, "span", lambda name, **args: contextlib.nullcontext())
+        m.setattr(MK, "_count_texture_rows", lambda mat, alive: None)
+        assert _ops(lambda: _teapot_trace(teapot)) == ops
+
+
+def test_texture_counters_count_outside_the_texture_span(teapot, monkeypatch):
+    """The texture counters run under ``pt.shade`` but after ``pt.texture``
+    has closed, so the span's time and launches are the fetches' alone."""
+    open_spans, seen = [], []
+    span, count, count_device = trace.span, trace.count, trace.count_device
+
+    @contextlib.contextmanager
+    def spy_span(name, **args):
+        open_spans.append(name)
+        try:
+            with span(name, **args):
+                yield
+        finally:
+            open_spans.pop()
+
+    def spy(real):
+        def counted(name, *args):
+            seen.append((name, tuple(open_spans)))
+            real(name, *args)
+
+        return counted
+
+    monkeypatch.setattr(trace, "span", spy_span)
+    monkeypatch.setattr(trace, "count", spy(count))
+    monkeypatch.setattr(trace, "count_device", spy(count_device))
+    trace.reset()
+    with trace.recording():
+        _teapot_trace(teapot)
+    trace.reset()
+    for name in ("tex.query", "tex.live"):
+        where = [spans for n, spans in seen if n == name]
+        assert len(where) == DEPTH, name
+        assert all(s[-2:] == ("pt.bounce", "pt.shade") for s in where), (name, where)
