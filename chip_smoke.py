@@ -42,7 +42,8 @@ Phases (each fails loudly; there is no CPU fallback):
    the closest-hit and any-hit kernels on camera and random rays, flags
    equal and the rows that differ printed;
 3. the main paths, launch counters zeroed just before and read just after
-   each run: ``render(cornell_box)`` at 64 spp (fused kernel), the CLI
+   each run: ``render(cornell_box)`` at 64 spp (fused kernel; it and the
+   mesh leg's fused render copy no RNG key, ``fused.key_copies``), the CLI
    (8 spp), ``render`` at 8 spp with ``fused="off"``; the same renders and
    the CLI with ``sampler="halton"``, and with the Mitchell filter; then
    the bench's mesh leg, ``render(mesh, spp=16, kspp=16, spp_per_pass=16)``
@@ -2325,6 +2326,8 @@ def main() -> int:
     check(launches_on["trace_paths_fused"] > 0, "default render went through the fused kernel")
     check(launches_on["camera_rays"] == SPP_FUSED,
           f"default render took the camera kernel once a pass ({SPP_FUSED} passes)")
+    check(trace.snapshot()["fused.key_copies"] == 0,
+          "default render handed the fused kernel its keys in place (no key copied)")
     check(bool(torch.isfinite(film_on.mean).all()), "fused film finite")
     check(float(film_on.mean.mean()) > 0.0, f"fused film mean {float(film_on.mean.mean()):.5f} > 0")
     mpaths = W * H * SPP_FUSED / dt_on / 1e6
@@ -2429,6 +2432,8 @@ def main() -> int:
           "the mesh render with fused='on' went through the fused BVH kernel, one launch")
     check(launches_mon["camera_rays"] == 1,
           "the mesh render with fused='on' took the camera kernel once, for its one pass")
+    check(trace.snapshot()["fused.key_copies"] == 0,
+          "the mesh render with fused='on' handed kernel 5 its keys in place (no key copied)")
     check(bool(torch.isfinite(film_mon.mean).all()) and float(film_mon.mean.mean()) > 0.0,
           f"mesh fused='on' film finite, mean {float(film_mon.mean.mean()):.5f} > 0")
     check_means_agree("mesh fused='on' and fused='off'", film_mon, film_moff)

@@ -229,6 +229,19 @@ struct HaltonRng {
   }
 };
 
+// Path r's sampler from its keys as the fused kernels take them, in place
+// from the render route: the low 32 bits of the (n,) int64 px, py and
+// sample that the camera kernel writes; a null sample gives every path
+// sample0 (a pass of one sample a pixel).
+template <class Smp>
+__device__ __forceinline__ Smp path_rng(const int64_t* __restrict__ px,
+                                        const int64_t* __restrict__ py,
+                                        const int64_t* __restrict__ sample, uint32_t sample0,
+                                        int r, uint32_t seed, int qmc_dims) {
+  return Smp((uint32_t)px[r], (uint32_t)py[r], sample ? (uint32_t)sample[r] : sample0, seed,
+             qmc_dims);
+}
+
 // ---------------------------------------------------------------------------
 // vector math (ops/vecmath.py, ops/sampling.py)
 // ---------------------------------------------------------------------------
@@ -967,8 +980,9 @@ __device__ __forceinline__ bool bounce(const Geo& g, const Smp& rng, const Shade
 template <class Geo, class Smp>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pt_fused_kernel(Geo geo, const float* __restrict__ o_in, const float* __restrict__ d_in,
-                    const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                    const uint32_t* __restrict__ sample, const float* __restrict__ tables,
+                    const int64_t* __restrict__ px, const int64_t* __restrict__ py,
+                    const int64_t* __restrict__ sample, uint32_t sample0,
+                    const float* __restrict__ tables,
                     int n, int n_mats, int n_lights, int n_em, int max_depth,
                     int rr_start_depth, uint32_t seed, int qmc_dims,
                     float* __restrict__ out) {
@@ -984,7 +998,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  const Smp rng(px[r], py[r], sample[r], seed, qmc_dims);
+  const Smp rng = path_rng<Smp>(px, py, sample, sample0, r, seed, qmc_dims);
   // the camera counts as delta
   PathRegs s{load3(o_in, r), load3(d_in, r), f3(1.f, 1.f, 1.f), f3(0.f, 0.f, 0.f),
              1.0f, 0.0f, false, true};
@@ -1023,11 +1037,12 @@ __device__ __forceinline__ int next_path(int* counter) {
 template <class Smp>
 __global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
     pt_fused_bvh_kernel(BvhGeo g, const float* __restrict__ o_in,
-                        const float* __restrict__ d_in, const uint32_t* __restrict__ px,
-                        const uint32_t* __restrict__ py, const uint32_t* __restrict__ sample,
-                        const float* __restrict__ shade, int n, int n_mats, int n_lights,
-                        int n_em, int max_depth, int rr_start_depth, uint32_t seed,
-                        int qmc_dims, int* __restrict__ counter, float* __restrict__ out) {
+                        const float* __restrict__ d_in, const int64_t* __restrict__ px,
+                        const int64_t* __restrict__ py, const int64_t* __restrict__ sample,
+                        uint32_t sample0, const float* __restrict__ shade, int n,
+                        int n_mats, int n_lights, int n_em, int max_depth,
+                        int rr_start_depth, uint32_t seed, int qmc_dims,
+                        int* __restrict__ counter, float* __restrict__ out) {
   extern __shared__ float smem[];
   block_copy(smem, shade, shade_floats(n_mats, n_lights, n_em));
   __syncthreads();
@@ -1048,7 +1063,7 @@ __global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
         continue;
       }
     }
-    const Smp rng(px[r], py[r], sample[r], seed, qmc_dims);
+    const Smp rng = path_rng<Smp>(px, py, sample, sample0, r, seed, qmc_dims);
     const bool alive = bounce(g, rng, sh, depth, rr_start_depth, s);
     fetch = !alive || ++depth >= max_depth;
     if (fetch) store3(out, r, s.radiance);
@@ -1244,7 +1259,7 @@ int set_smem(K kernel, size_t smem) {
 
 template <class Geo, class Smp>
 int launch(const Geo& geo, const float* o, const float* d,
-           const uint32_t* px, const uint32_t* py, const uint32_t* sample,
+           const int64_t* px, const int64_t* py, const int64_t* sample, uint32_t sample0,
            const float* tables, int n, int n_mats, int n_lights, int n_em,
            int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims, float* out,
            void* stream) {
@@ -1253,7 +1268,7 @@ int launch(const Geo& geo, const float* o, const float* d,
   if (const int err = set_smem(pt_fused_kernel<Geo, Smp>, smem)) return err;
   const int grid = (n + kBlock - 1) / kBlock;
   pt_fused_kernel<Geo, Smp><<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      geo, o, d, px, py, sample, tables, n, n_mats, n_lights, n_em, max_depth,
+      geo, o, d, px, py, sample, sample0, tables, n, n_mats, n_lights, n_em, max_depth,
       rr_start_depth, seed, qmc_dims, out);
   return (int)cudaGetLastError();
 }
@@ -1277,15 +1292,15 @@ int persistent_grid(K kernel, size_t smem, int n, int& grid) {
 
 template <class Smp>
 int launch_fused_bvh(const BvhGeo& geo, const float* o, const float* d,
-                     const uint32_t* px, const uint32_t* py, const uint32_t* sample,
-                     const float* shade, int n, int n_mats, int n_lights, int n_em,
-                     int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims,
+                     const int64_t* px, const int64_t* py, const int64_t* sample,
+                     uint32_t sample0, const float* shade, int n, int n_mats, int n_lights,
+                     int n_em, int max_depth, int rr_start_depth, uint32_t seed, int qmc_dims,
                      int* counter, float* out, void* stream) {
   const size_t smem = sizeof(float) * (size_t)shade_floats(n_mats, n_lights, n_em);
   int grid = 0;
   if (const int err = persistent_grid(pt_fused_bvh_kernel<Smp>, smem, n, grid)) return err;
   pt_fused_bvh_kernel<Smp><<<grid, kBvhBlock, smem, (cudaStream_t)stream>>>(
-      geo, o, d, px, py, sample, shade, n, n_mats, n_lights, n_em, max_depth,
+      geo, o, d, px, py, sample, sample0, shade, n, n_mats, n_lights, n_em, max_depth,
       rr_start_depth, seed, qmc_dims, counter, out);
   return (int)cudaGetLastError();
 }
@@ -1310,33 +1325,35 @@ int launch_bounce(const BvhGeo& geo, float* st, const int64_t* perm,
 // code (0 = launched). sampler: 0 hash, 1 Halton (qmc_dims leading
 // dimensions); seed is the sampler's seed.
 //
-// The whole-path kernel: o, d (n,3); px, py, sample (n,) u32; out (n,3).
+// The whole-path kernel: o, d (n,3); out (n,3). The keys px, py and sample
+// are (n,) int64, read in place: each path takes the low 32 bits of its
+// element (the u32 key); sample null gives every path sample0.
 // Brute force: tables = triangle rows (T,12) [v0, material id | e0, 0 |
 // e1, 0] | shading tables, as packed once per scene by ops/shade_tables.py
 // (pack_brute_tables), 16-byte aligned.
-extern "C" int pt_fused_bruteforce(const float* o, const float* d, const uint32_t* px,
-                                   const uint32_t* py, const uint32_t* sample,
+extern "C" int pt_fused_bruteforce(const float* o, const float* d, const int64_t* px,
+                                   const int64_t* py, const int64_t* sample, uint32_t sample0,
                                    const float* tables, int n, int n_tris, int n_mats,
                                    int n_lights, int n_em, int max_depth,
                                    int rr_start_depth, int sampler, uint32_t seed,
                                    int qmc_dims, float* out, void* stream) {
   const BruteGeo geo{n_tris, nullptr};
   if (sampler == 0)
-    return launch<BruteGeo, HashRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
-                                     n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
-                                     stream);
+    return launch<BruteGeo, HashRng>(geo, o, d, px, py, sample, sample0, tables, n, n_mats,
+                                     n_lights, n_em, max_depth, rr_start_depth, seed,
+                                     qmc_dims, out, stream);
   if (sampler == 1)
-    return launch<BruteGeo, HaltonRng>(geo, o, d, px, py, sample, tables, n, n_mats, n_lights,
-                                       n_em, max_depth, rr_start_depth, seed, qmc_dims, out,
-                                       stream);
+    return launch<BruteGeo, HaltonRng>(geo, o, d, px, py, sample, sample0, tables, n, n_mats,
+                                       n_lights, n_em, max_depth, rr_start_depth, seed,
+                                       qmc_dims, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // BVH: shade = the shading tables (pack_shade_tables); nodes (M, 64)
 // compact nodes (ops/bvh.py pack_nodes); rows (Tp, 12) f32 triangle rows
 // and tri_mat (Tp,) i32 in packed-BVH order; counter one zeroed int32.
-extern "C" int pt_fused_bvh(const float* o, const float* d, const uint32_t* px,
-                            const uint32_t* py, const uint32_t* sample,
+extern "C" int pt_fused_bvh(const float* o, const float* d, const int64_t* px,
+                            const int64_t* py, const int64_t* sample, uint32_t sample0,
                             const float* shade, const float* nodes, const float* rows,
                             const int* tri_mat, int n, int n_mats,
                             int n_lights, int n_em, int max_depth, int rr_start_depth,
@@ -1346,11 +1363,11 @@ extern "C" int pt_fused_bvh(const float* o, const float* d, const uint32_t* px,
                               reinterpret_cast<const float4*>(rows)},
                    tri_mat};
   if (sampler == 0)
-    return launch_fused_bvh<HashRng>(geo, o, d, px, py, sample, shade, n, n_mats,
+    return launch_fused_bvh<HashRng>(geo, o, d, px, py, sample, sample0, shade, n, n_mats,
                                      n_lights, n_em, max_depth, rr_start_depth, seed,
                                      qmc_dims, counter, out, stream);
   if (sampler == 1)
-    return launch_fused_bvh<HaltonRng>(geo, o, d, px, py, sample, shade, n, n_mats,
+    return launch_fused_bvh<HaltonRng>(geo, o, d, px, py, sample, sample0, shade, n, n_mats,
                                        n_lights, n_em, max_depth, rr_start_depth, seed,
                                        qmc_dims, counter, out, stream);
   return (int)cudaErrorInvalidValue;

@@ -26,6 +26,10 @@ takes it for CUDA scenes with the box filter, a Python int sample and
 camera matrices that need no gradient, and its plain route otherwise
 (``megakernel.camera_plain``, whose values the kernel writes bit for bit).
 
+The fused kernels read the RNG keys in place as the camera stage writes
+them, (N,) int64 with a Python int sample (``fused_keys``); any other key
+is copied first, and each such copy adds 1 to ``fused.key_copies``.
+
 Each launch adds 1 to the counter ``launches.trace_paths_fused``,
 ``launches.bounce_fused`` or ``launches.camera_rays``
 (``utils/trace.py``), and nothing else does.
@@ -64,15 +68,20 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _L = ctypes.c_longlong
 _SAMPLER_ARGS = [_I, _U, _I]  # sampler code, seed, qmc_dims
+_KEY_ARGS = [_P, _P, _P, _U]  # px, py, sample (or null), sample0
 
 
 @functools.cache
 def _lib():
     lib = _cuda_build.load("megakernel")
-    lib.pt_fused_bruteforce.argtypes = [_P] * 6 + [_I] * 7 + _SAMPLER_ARGS + [_P] * 2
+    lib.pt_fused_bruteforce.argtypes = (
+        [_P] * 2 + _KEY_ARGS + [_P] + [_I] * 7 + _SAMPLER_ARGS + [_P] * 2
+    )
     lib.pt_fused_bruteforce.restype = _I
     bvh_args = [_P] * 3  # nodes, rows, tri_mat
-    lib.pt_fused_bvh.argtypes = [_P] * 6 + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 3
+    lib.pt_fused_bvh.argtypes = (
+        [_P] * 2 + _KEY_ARGS + [_P] + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 3
+    )
     lib.pt_fused_bvh.restype = _I
     lib.pt_bounce_bvh.argtypes = [_P] * 5 + bvh_args + [_I] * 6 + _SAMPLER_ARGS + [_P] * 2
     lib.pt_bounce_bvh.restype = _I
@@ -162,11 +171,33 @@ def _brute(scene: Scene) -> torch.Tensor:
     return scene.brute_tables
 
 
-def _u32_as_i32(x, n, device):
-    """(n,) int32 tensor holding the u32 bit patterns of int64 ``x``."""
-    x = torch.as_tensor(x, dtype=torch.int64, device=device) & 0xFFFFFFFF
-    x = torch.where(x >= 2**31, x - 2**32, x)
-    return torch.broadcast_to(x, (n,)).to(torch.int32).contiguous()
+def fused_keys(px, py, sample, n: int, device):
+    """The RNG keys of n paths as the fused kernels read them → (px, py,
+    sample or None, sample0). The kernels take each key's low 32 bits (its
+    u32 value) from (n,) int64 arrays, so a key that is a contiguous (n,)
+    int64 tensor on ``device``, as the camera stage writes them, goes in
+    place; a Python int ``sample`` (one sample a pixel) gives None and its
+    low 32 bits as ``sample0``, which every path takes. Any other key (int32,
+    on another device, 0-d, broadcast) is copied into such a tensor, each
+    copy adding 1 to the counter ``fused.key_copies``."""
+
+    def key(x):
+        if (isinstance(x, torch.Tensor) and x.dtype == torch.int64 and x.device == device
+                and x.shape == (n,) and x.is_contiguous()):
+            return x
+        trace.count("fused.key_copies")
+        x = torch.as_tensor(x, dtype=torch.int64, device=device)
+        return torch.broadcast_to(x, (n,)).contiguous()
+
+    if isinstance(sample, int):
+        return key(px), key(py), None, sample & R.M32
+    return key(px), key(py), key(sample), 0
+
+
+def _low_words(k: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 view of the low 32-bit words of a contiguous (n,) int64
+    tensor: its u32 bit patterns (little-endian, so each low word first)."""
+    return k.view(torch.int32)[::2]
 
 
 def _sampler_code(sampler: str, qmc_dims: int) -> int:
@@ -213,9 +244,8 @@ def trace_paths_fused(
                 f"than the fused kernel's {MAX_SMEM_BYTES} B"
             )
         o, d = o.contiguous(), d.contiguous()
-        px32 = _u32_as_i32(px, n, dev)
-        py32 = _u32_as_i32(py, n, dev)
-        s32 = _u32_as_i32(sample, n, dev)
+        kpx, kpy, ks, sample0 = fused_keys(px, py, sample, n, dev)
+        keys = (kpx.data_ptr(), kpy.data_ptr(), None if ks is None else ks.data_ptr(), sample0)
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
         if n == 0:
             return out
@@ -227,15 +257,13 @@ def trace_paths_fused(
             check_bvh_scene(scene, o, d)
             counter = torch.zeros(1, dtype=torch.int32, device=dev)
             rc = _lib().pt_fused_bvh(
-                o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-                s32.data_ptr(), _shade(scene).data_ptr(), *_bvh_tables(scene),
+                o.data_ptr(), d.data_ptr(), *keys, _shade(scene).data_ptr(), *_bvh_tables(scene),
                 n, n_mats, scene.num_lights, k, max_depth, rr_start_depth, *smp,
                 counter.data_ptr(), out.data_ptr(), stream,
             )
         else:
             rc = _lib().pt_fused_bruteforce(
-                o.data_ptr(), d.data_ptr(), px32.data_ptr(), py32.data_ptr(),
-                s32.data_ptr(), _brute(scene).data_ptr(),
+                o.data_ptr(), d.data_ptr(), *keys, _brute(scene).data_ptr(),
                 n, scene.num_triangles, n_mats, scene.num_lights, k, max_depth,
                 rr_start_depth, *smp, out.data_ptr(), stream,
             )
@@ -312,9 +340,10 @@ def pack_path_state(px, py, sample, o, d) -> torch.Tensor:
     si[:, ALIVE] = 1
     st[:, ETA_SCALE] = 1.0
     si[:, PREV_DELTA] = 1  # the camera counts as delta
-    si[:, PX] = _u32_as_i32(px, n, dev)
-    si[:, PY] = _u32_as_i32(py, n, dev)
-    si[:, SAMPLE] = _u32_as_i32(sample, n, dev)
+    kpx, kpy, ks, sample0 = fused_keys(px, py, sample, n, dev)
+    si[:, PX] = _low_words(kpx)
+    si[:, PY] = _low_words(kpy)
+    si[:, SAMPLE] = sample0 - (sample0 >> 31 << 32) if ks is None else _low_words(ks)
     si[:, SLOT] = torch.arange(n, dtype=torch.int32, device=dev)
     return st
 

@@ -13,8 +13,9 @@ reads an environment variable or a flag of the CLI.
   gets the suffix ``:replay``.
 - **Counters**: one registry of named counts. ``count`` adds a Python
   int and is always on (the kernel wrappers' ``launches.<wrapper>``, the
-  rays handed to the intersection queries, ``rays.query``, and the rows
-  handed to the texture fetches, ``tex.query``). ``count_device`` adds
+  rays handed to the intersection queries, ``rays.query``, the rows
+  handed to the texture fetches, ``tex.query``, and the RNG keys the
+  fused kernels could not read in place, ``fused.key_copies``). ``count_device`` adds
   the elements of a device tensor that are nonzero into one device
   accumulator per name, only while recording (``rays.live``, ``tex.live``);
   nothing is read back until ``snapshot()``, so no count synchronises the

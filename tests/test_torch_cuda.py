@@ -529,6 +529,72 @@ def test_sorted_route_refuses_brute_force_scene(dev, scene):
         MKC.bounce_fused(scene, MKC.pack_path_state(px, py, sample, o, d), 0)
 
 
+def _key_copies() -> int:
+    from cuda_optix_pathtracing_tpu_torch.utils import trace
+
+    return trace.snapshot()["fused.key_copies"]
+
+
+def _words32(k: torch.Tensor) -> torch.Tensor:
+    """int32 keys holding the u32 values (low 32 bits) of int64 keys."""
+    k = k & 0xFFFFFFFF
+    return torch.where(k >= 2**31, k - 2**32, k).to(torch.int32)
+
+
+# kernels 1 and 5 (1h and 4h with Halton) read int64 keys and a Python int
+# sample in place, bit-equal to the same keys copied from int32: at n = 0,
+# 1, one below a block of kernel 1 (128) and 65,536, on keys drawn over the
+# whole int64 range, so at and above 2^31 and negative
+@pytest.mark.parametrize("n", [0, 1, 127, 65_536])
+@pytest.mark.parametrize("geo", ["brute", "bvh"])
+@pytest.mark.parametrize("sampler", ["hash", "halton"])
+def test_fused_keys_in_place_equal_copied(dev, scene, mesh, sampler, geo, n):
+    from cuda_optix_pathtracing_tpu_torch.models.megakernel_cuda import trace_paths_fused
+
+    sc = mesh if geo == "bvh" else scene
+    o, d = (x[:n] for x in _camera_rays(dev, sc, 64, sampler=sampler)[3:])
+    g = torch.Generator().manual_seed(n)
+    px, py, sample = (torch.randint(-2**63, 2**63 - 1, (n,), generator=g, dtype=torch.int64)
+                      .to(dev) for _ in range(3))
+    if n:
+        px[0], py[0], sample[0] = 2**31, 2**32 - 1, -1
+    s0 = 2**33 + 2**31 + 7  # a Python int whose low 32 bits are at and above 2^31
+
+    def run(*keys):
+        launched, copies = _launches("trace_paths_fused"), _key_copies()
+        out = trace_paths_fused(sc, *keys, o, d, max_depth=5, seed=2**31 + 3, sampler=sampler)
+        assert _launches("trace_paths_fused") == launched + (n > 0)
+        return out, _key_copies() - copies
+
+    in_place, c_in_place = run(px, py, sample)
+    copied, c_copied = run(_words32(px), _words32(py), _words32(sample))
+    scalar, c_scalar = run(px, py, s0)
+    scalar_copied, _ = run(_words32(px), _words32(py),
+                           _words32(torch.full((n,), s0, dtype=torch.int64, device=dev)))
+    assert (c_in_place, c_copied, c_scalar) == (0, 3, 0)
+    assert torch.equal(in_place, copied) and torch.equal(scalar, scalar_copied)
+    assert in_place.shape == scalar.shape == (n, 3)
+    if n > 1:
+        assert not torch.equal(in_place, scalar)  # the sample key reaches the kernel
+
+
+@pytest.mark.parametrize("geo,nspp", [("brute", 1), ("bvh", 4)])
+def test_render_route_copies_no_key(dev, scene, mesh, geo, nspp):
+    """render_sample_batch hands kernels 1 and 5 the camera kernel's keys
+    in place (a Python int sample at one spp a pass, int64 keys at four):
+    one fused launch a pass and no key copied."""
+    from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+
+    sc = mesh if geo == "bvh" else scene
+    cfg = MK.MegakernelConfig(max_depth=3)
+    launched, copies = _launches("trace_paths_fused"), _key_copies()
+    img = MK.render_sample_batch(sc, cfg, 32, 32, 2**31 + 1, nspp=nspp)
+    torch.cuda.synchronize()
+    assert _launches("trace_paths_fused") == launched + 1
+    assert _key_copies() == copies
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+
+
 def test_bvh_wrappers_refuse_trees_the_kernels_cannot_walk(dev, mesh):
     """A tree deeper than the compact stack allows (depth 10) or of 2^24
     nodes is refused by every BVH wrapper before a launch, and the fused
@@ -571,12 +637,13 @@ def test_kernel_entry_points_return_launch_errors(dev, mesh, monkeypatch):
     assert blib.bvh_closest(None, None, None, None, -1, None, None, stream) != 0
     assert blib.bvh_anyhit(None, None, None, None, None, -1, None, stream) != 0
     mlib = MKC._lib()
-    z = [None] * 6
-    assert mlib.pt_fused_bruteforce(*z, 0, 1, 1, 0, 1, 0, 0, 7, 0, 0, None, None) != 0
-    assert mlib.pt_fused_bruteforce(*z, 0, 1 << 20, 1, 0, 0, 0, 0, 0, 0, 0, None, None) != 0
-    assert mlib.pt_fused_bvh(*z, None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
+    z = [None] * 5
+    k = [*z, 0, None]  # o, d, px, py, sample, sample0, the tables
+    assert mlib.pt_fused_bruteforce(*k, 0, 1, 1, 0, 1, 0, 0, 7, 0, 0, None, None) != 0
+    assert mlib.pt_fused_bruteforce(*k, 0, 1 << 20, 1, 0, 0, 0, 0, 0, 0, 0, None, None) != 0
+    assert mlib.pt_fused_bvh(*k, None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
                              None, None, None) != 0
-    assert mlib.pt_bounce_bvh(*z[:5], None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
+    assert mlib.pt_bounce_bvh(*z, None, None, None, 0, 1, 1, 0, 1, 0, 7, 0, 0,
                               None, None) != 0
     torch.cuda.synchronize()  # the errors were launch errors: the card is fine
     o, d, t_max = _rays(dev, n=64)

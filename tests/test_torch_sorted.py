@@ -146,6 +146,80 @@ def test_path_state_round_trips():
         np.testing.assert_array_equal(a.numpy(), flags[:, f].numpy() != 0)
 
 
+# keys over the whole int64 range: the kernels read the low 32 bits
+KEYS = [0, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32 + 5, -1, -2**31, -2**63, 2**63 - 1]
+
+
+def _words(values):
+    """The u32 values (low 32 bits) of int keys, as int32 bit patterns."""
+    return [((v & 0xFFFFFFFF) ^ 2**31) - 2**31 for v in values]
+
+
+def _key_inputs(kind):
+    """(px, py, sample, keys handed over in place, copies) of one input kind;
+    sample's values are the reverse of px's, py's are px's."""
+    k64 = torch.tensor(KEYS, dtype=torch.int64)
+    rev = k64.flip(0).contiguous()
+    if kind == "int64":
+        return k64, k64.clone(), rev, (True, True, True), 0
+    if kind == "int":  # a Python int sample (one sample a pixel): sample0
+        return k64, k64.clone(), 2**40 - 1, (True, True, None), 0
+    if kind == "negative int":
+        return k64, k64.clone(), -2**31 - 1, (True, True, None), 0
+    if kind == "int32":
+        w = lambda x: torch.tensor(_words(x.tolist()), dtype=torch.int32)  # noqa: E731
+        return w(k64), w(k64), w(rev), (False, False, False), 3
+    if kind == "0-d":
+        return k64, k64.clone(), torch.tensor(2**32 - 1), (True, True, False), 1
+    if kind == "broadcast":
+        return k64, k64.clone(), torch.tensor(-5).expand(len(KEYS)), (True, True, False), 1
+    if kind == "strided":
+        both = torch.stack([k64, rev], 1).reshape(-1)
+        return both[0::2], both[0::2].clone(), both[1::2], (False, True, False), 2
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize(
+    "kind", ["int64", "int", "negative int", "int32", "0-d", "broadcast", "strided"]
+)
+def test_fused_keys_route_and_values(kind):
+    """fused_keys hands a contiguous (n,) int64 key on the device over in
+    place and a Python int sample as sample0, and copies any other key,
+    counted in fused.key_copies; either way the kernels' low 32 bits of each
+    key, and pack_path_state's key columns, hold the u32 values."""
+    px, py, sample, in_place, copies = _key_inputs(kind)
+    n, dev = len(KEYS), torch.device("cpu")
+    before = trace.snapshot()["fused.key_copies"]
+    got = MKC.fused_keys(px, py, sample, n, dev)
+    assert trace.snapshot()["fused.key_copies"] == before + copies
+    if isinstance(sample, int):
+        want_s = _words([sample]) * n
+        assert got[2] is None and got[3] == sample & 0xFFFFFFFF
+    else:
+        want_s = _words(torch.as_tensor(sample).expand(n).tolist())
+        assert got[3] == 0
+    wants = (_words(KEYS), _words(KEYS), want_s)
+    for x, k, same in zip((px, py, sample), got[:3], in_place):
+        assert (k is x) == bool(same)
+        if k is not None:
+            assert k.dtype == torch.int64 and k.shape == (n,) and k.is_contiguous()
+    words = [MKC._low_words(k).tolist() for k in got[:2]]
+    words.append(_words([got[3]]) * n if got[2] is None else MKC._low_words(got[2]).tolist())
+    assert words == list(wants)
+    st = MKC.pack_path_state(px, py, sample, torch.zeros((n, 3)), torch.ones((n, 3)))
+    si = st.view(torch.int32)
+    assert [si[:, c].tolist() for c in (MKC.PX, MKC.PY, MKC.SAMPLE)] == list(wants)
+
+
+def test_fused_keys_copy_keys_on_another_device():
+    """Keys on another device than the rays' are copied to it, each counted."""
+    k = torch.arange(4, dtype=torch.int64)
+    before = trace.snapshot()["fused.key_copies"]
+    got = MKC.fused_keys(k, k, k, 4, torch.device("meta"))
+    assert trace.snapshot()["fused.key_copies"] == before + 3
+    assert all(x.device.type == "meta" and x.shape == (4,) for x in got[:3])
+
+
 def test_sorted_refuses_a_scene_without_bvh():
     scene = cornell_box(W, H, device="cpu")
     o = torch.zeros((4, 3))
