@@ -112,7 +112,7 @@ def measure_k23(out: dict) -> None:
                                 cfg=MK.MegakernelConfig(fused="off"))
 
     rec = S.record_brute_launches(MK, render)
-    IC = MK.intersect_cuda
+    IC = MK.query.intersect_cuda
     out["digest_k23_film_off"] = digest(film["off"].mean)
     closest = [IC.closest_bruteforce(o, d, *tris, **kw) for (o, d), kw in rec["closest"]]
     anyhit = [IC.anyhit_bruteforce(o, d, *tris, tm, **kw) for (o, d, tm), kw in rec["any"]]
@@ -148,7 +148,7 @@ def measure_k4(out: dict) -> None:
         film["off"] = MK.render(mesh, S.W, S.H, cfg=cfg, spp=SPP, kspp=SPP, spp_per_pass=SPP)
 
     rec = S.record_bvh_launches(MK, render)
-    BV = MK.bvh_cuda
+    BV = MK.query.bvh_cuda
     out["digest_k4_film_off"] = digest(film["off"].mean)
     closest = [BV.bvh_closest_raw(o, d, mesh) for o, d in rec["closest"]]
     anyhit = [BV.bvh_any_raw(o, d, mesh, tm) for o, d, tm in rec["any"]]

@@ -488,13 +488,15 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
     hit is shaded and casts a shadow ray when the light sample's
     unoccluded contribution is non-zero, tested up to its first occluder.
     The counts come from wrapping the module's ``bounce_step`` and
-    ``_nee`` for this one call."""
+    ``_nee``, and its query seam's ``occluded`` (``MK.query``), for this
+    one call."""
     import torch
 
     n_tris = scene.num_triangles
     count = {"hits": 0, "tests": 0, "hits0": None}
     live = {}
-    bounce_step, nee, any_hit = MK.bounce_step, MK._nee, MK._any
+    Q = MK.query
+    bounce_step, nee, any_hit = MK.bounce_step, MK._nee, Q.occluded
 
     def counting_bounce(scene, cfg, sampler, px, py, sample, depth, state):
         live["alive"] = state.alive
@@ -513,11 +515,11 @@ def fused_work(MK, scene, cfg, px, py, sample, o, d):
             shadow["rays"] = (so, sd, t_max)
             return torch.zeros(so.shape[0], dtype=torch.bool, device=so.device)
 
-        MK._any = unoccluded
+        Q.occluded = unoccluded
         try:
             free = nee(scene, cfg, *args, **kw)
         finally:
-            MK._any = any_hit
+            Q.occluded = any_hit
         so, sd, t_max = shadow["rays"]
         cast = shaded & (free != 0).any(-1)
         count["tests"] += first_occluder_tests(
@@ -571,9 +573,11 @@ def bvh_fused_work(MK, scene, cfg, px, py, sample, o, d):
     closest-hit traversal, and the shadow ray's any-hit traversal where
     the light sample's contribution is non-zero (the rays the plain
     integrator marks live for the BVH kernels), each walked by
-    ``traverse_packed_ref`` → three lists, one entry per depth."""
+    ``traverse_packed_ref`` → three lists, one entry per depth. The counts
+    come from wrapping the query seam (``MK.query``) for this one call."""
     count = {"hits": [], "slabs": [], "tests": []}
-    closest, any_hit, bounce_step = MK._closest, MK._any, MK.bounce_step
+    Q = MK.query
+    closest, any_hit, bounce_step = Q.closest, Q.occluded, MK.bounce_step
 
     def add(slabs_tests):
         count["slabs"][-1] += slabs_tests[0]
@@ -594,11 +598,11 @@ def bvh_fused_work(MK, scene, cfg, px, py, sample, o, d):
         add(traversal_counts(scene, o[alive], d[alive], "any", t_max[alive]))
         return any_hit(scene, cfg, o, d, t_max, alive=alive)
 
-    MK._closest, MK._any, MK.bounce_step = counting_closest, counting_any, counting_bounce
+    Q.closest, Q.occluded, MK.bounce_step = counting_closest, counting_any, counting_bounce
     try:
         MK.trace_paths(scene, cfg, px, py, sample, o, d, device=o.device)
     finally:
-        MK._closest, MK._any, MK.bounce_step = closest, any_hit, bounce_step
+        Q.closest, Q.occluded, MK.bounce_step = closest, any_hit, bounce_step
     return count["hits"], count["slabs"], count["tests"]
 
 
@@ -708,29 +712,31 @@ def camera_rays(scene, spp: int, morton: bool = False, sampler: str = "hash"):
 
 def depth0_rays(MK, scene, cfg, px, py, sample, o, d):
     """The live bounce rays (o, d) and the cast shadow rays (o, d, t_max)
-    of one bounce of a plain run of ``MK.bounce_step`` at depth 0."""
+    of one bounce of a plain run of ``MK.bounce_step`` at depth 0, the
+    shadow rays recorded at the query seam (``MK.query.occluded``)."""
     from cuda_optix_pathtracing_tpu_torch.ops import rng as R
 
     shadow = {}
-    any_hit = MK._any
+    Q = MK.query
+    any_hit = Q.occluded
 
     def recording(scene, cfg, so, sd, t_max, alive=None):
         shadow["rays"] = (so, sd, t_max, alive)
         return any_hit(scene, cfg, so, sd, t_max, alive=alive)
 
-    MK._any = recording
+    Q.occluded = recording
     try:
         st = MK.bounce_step(scene, cfg, R.Sampler("hash", 0), px, py, sample, 0,
                             MK.init_path_state(o.shape[0], o, d))
     finally:
-        MK._any = any_hit
+        Q.occluded = any_hit
     so, sd, t_max, cast = shadow["rays"]
     return (st.o[st.alive], st.d[st.alive]), (so[cast], sd[cast], t_max[cast])
 
 
 def record_bvh_launches(MK, fn):
-    """Run ``fn`` with the integrator's view of the BVH kernels' module
-    (``MK.bvh_cuda``) shimmed to keep a copy of every launch's rays →
+    """Run ``fn`` with the query seam's view of the BVH kernels' module
+    (``MK.query.bvh_cuda``) shimmed to keep a copy of every launch's rays →
     {"closest": [(o, d)], "any": [(o, d, t_max)]}, and under
     "closest_tables" and "any_tables" the tables each launch walked (the
     scene's, or an instance mesh's). The wrappers themselves stay in place,
@@ -740,7 +746,8 @@ def record_bvh_launches(MK, fn):
     import torch
 
     rec = {"closest": [], "any": [], "closest_tables": [], "any_tables": []}
-    BV = MK.bvh_cuda
+    Q = MK.query
+    BV = Q.bvh_cuda
 
     def rec_closest(o, d, scene):
         rec["closest"].append((o.clone(), d.clone()))
@@ -754,18 +761,18 @@ def record_bvh_launches(MK, fn):
         rec["any_tables"].append(scene)
         return BV.bvh_any_raw(o, d, scene, t_max)
 
-    MK.bvh_cuda = types.SimpleNamespace(bvh_closest_raw=rec_closest, bvh_any_raw=rec_any)
+    Q.bvh_cuda = types.SimpleNamespace(bvh_closest_raw=rec_closest, bvh_any_raw=rec_any)
     try:
         fn()
     finally:
-        MK.bvh_cuda = BV
+        Q.bvh_cuda = BV
     return rec
 
 
 def record_brute_launches(MK, fn):
-    """Run ``fn`` with the integrator's view of the brute-force kernels'
-    module (``MK.intersect_cuda``) shimmed to keep a copy of every launch's
-    rays → {"closest": [((o, d), kw)], "any": [((o, d, t_max), kw)]}, with
+    """Run ``fn`` with the query seam's view of the brute-force kernels'
+    module (``MK.query.intersect_cuda``) shimmed to keep a copy of every
+    launch's rays → {"closest": [((o, d), kw)], "any": [((o, d, t_max), kw)]}, with
     the keyword arguments (``rows=``) the integrator passed, kept as given.
     The wrappers themselves stay in place, so their launch counts stay
     true."""
@@ -774,7 +781,8 @@ def record_brute_launches(MK, fn):
     import torch
 
     rec = {"closest": [], "any": []}
-    IC = MK.intersect_cuda
+    Q = MK.query
+    IC = Q.intersect_cuda
 
     def rec_closest(o, d, v0, e0, e1, **kw):
         rec["closest"].append(((o.clone(), d.clone()), kw))
@@ -786,12 +794,12 @@ def record_brute_launches(MK, fn):
         rec["any"].append(((o.clone(), d.clone(), t.clone()), kw))
         return IC.anyhit_bruteforce(o, d, v0, e0, e1, t_max, **kw)
 
-    MK.intersect_cuda = types.SimpleNamespace(closest_bruteforce=rec_closest,
-                                              anyhit_bruteforce=rec_any)
+    Q.intersect_cuda = types.SimpleNamespace(closest_bruteforce=rec_closest,
+                                             anyhit_bruteforce=rec_any)
     try:
         fn()
     finally:
-        MK.intersect_cuda = IC
+        Q.intersect_cuda = IC
     return rec
 
 
@@ -2733,7 +2741,7 @@ def main() -> int:
         torch.cuda.synchronize()
         route_rep[route].append(n_pass / (time.perf_counter() - t0) / 1e6)
     for label, o, d in (("closest", o_c, d_c), ("any", o_a, d_a)):
-        n_dead = int((o[:, 0] == MK._DEAD_ORIGIN).sum())
+        n_dead = int((o[:, 0] == MK.query._DEAD_ORIGIN).sum())
         print(f"  bvh {label} at the main path's depth-1 launch: {o.shape[0]} sorted rays, "
               f"{n_dead} of them parked dead")
     tk, ik = BV.bvh_closest_raw(o_c, d_c, mesh_main)

@@ -21,24 +21,18 @@ Many lights: a scene with a light tree (``ops/light_tree.py``) selects
 its NEE light by a stochastic importance descent of the tree below 1, 2
 or 4 deterministic subtree roots (``nee_splits``), one shadow ray each,
 and MIS-weights a directly hit emitter by the tree's pmf from the last
-shading point (``PathState.prev_n``, carried only then). Instanced scenes
-(``Scene.instances``) run each query once per instance: rays that miss
-the instance's world box are parked, the rest transformed into object
-space (explicit float32 mul-adds, the direction left unnormalized so t is
-shared) and sent to the kernel of that mesh's own tables, the closest
-hit min-reduced over the instances. Both take ``fused="off"``: the fused
-gate refuses them.
+shading point (``PathState.prev_n``, carried only then). Instanced
+scenes (``Scene.instances``) place base meshes by affine transforms. Both
+take ``fused="off"``: the fused gate refuses them.
 
 Two routes down the same path:
 
 - ``fused="on"``: ``models/megakernel_cuda.trace_paths_fused``, the whole
   path loop in one CUDA kernel (one thread per path);
 - ``fused="off"``: ``trace_paths`` below, a Python depth loop of dense
-  masked bounce steps over the ray batch, whose closest-hit and shadow
-  queries go to the CUDA kernels for CUDA tensors (brute force,
-  ``ops/intersect_cuda.py``; BVH scenes, ``ops/bvh_cuda.py``, on rays
-  stably sorted by octant and origin with dead rays parked) and to the
-  plain sweep, unsorted, for CPU tensors.
+  masked bounce steps over the ray batch. Its closest-hit and shadow
+  queries go through ``ops/query.py``, which picks their kernel (or the
+  plain sweep), parks dead rays, sorts the rays and loops over instances.
 
 BVH scenes render their camera rays in Morton pixel order when the image
 is a power-of-two square (``pixel_order``), so neighbouring rays start in
@@ -66,19 +60,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops import bvh_cuda, intersect_cuda
+from ..ops import query
 from ..ops import rng as R
 from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
 from ..ops.camera import generate_rays, pixel_centers
 from ..ops.envmap import env_radiance, eval_envmap, sample_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
 from ..ops.filters import filter_sampler, sample_filter
-from ..ops.intersect import BIG_T, closest_epilogue, intersect_any, intersect_closest_raw
 from ..ops.light_tree import REC_ROW, REC_TRI, light_tree_pmf, sample_light_tree, split_frontier
 from ..ops.lights import AREA, ENV, eval_light, sample_area_light, sample_light
 from ..ops.morton import is_pot_square, morton_pixel_order, unmorton_image
-from ..ops.raysort import ray_sort_key, sorted_apply, sorted_apply_tmax
-from ..ops.shade_tables import BRUTE_ROW_WORDS
 from ..ops.texture import (
     MAX_ANISO,
     cone_ellipse_uv,
@@ -139,8 +130,9 @@ class MegakernelConfig:
     # order keeps neighbouring rays in neighbouring pixels; auto = morton
     # when the scene has a BVH and the image is a power-of-two square
     sort_rays: str = "auto"  # "auto" | "on" | "off": sort rays by
-    # direction octant | origin Morton before the BVH kernels (kernel
-    # route only); auto = on whenever the scene has a BVH
+    # direction octant | origin Morton before the intersection kernels
+    # (kernel route, BVH and instanced scenes); auto = on whenever a
+    # queried mesh has a BVH
     debug: bool = False  # NaN guard: render() checks the film for
     # non-finite values after every progressive batch and raises
     # FloatingPointError naming the batch and the count (one host read a
@@ -168,270 +160,6 @@ def _validate(cfg: MegakernelConfig) -> None:
         raise ValueError(f"unknown sort_rays {cfg.sort_rays!r}")
     if cfg.remat_every < 1:
         raise ValueError(f"remat_every must be >= 1, got {cfg.remat_every}")
-
-
-def _use_kernels(cfg: MegakernelConfig, t: torch.Tensor) -> bool:
-    if cfg.backend == "torch":
-        return False
-    if cfg.backend == "cuda" and not t.is_cuda:
-        raise ValueError("backend='cuda' needs CUDA tensors")
-    return t.is_cuda
-
-
-def _sort_on(cfg, scene) -> bool:
-    if cfg.sort_rays == "auto":
-        return scene.bvh is not None
-    return cfg.sort_rays == "on"
-
-
-_DEAD_ORIGIN = 1.0e9  # parked origin of a dead ray: outside every box
-_DEAD_DIR = (0.57735027, 0.57735027, 0.57735027)  # +octant, pointing away
-
-
-def _park_dead(o, d, alive):
-    """Move dead rays far away, pointing away from the scene: their
-    traversal ends at the root, and their results are masked anyway."""
-    if alive is None:
-        return o, d
-    m = alive[:, None]
-    return (
-        torch.where(m, o, _DEAD_ORIGIN),
-        torch.where(m, d, torch.tensor(_DEAD_DIR, dtype=d.dtype, device=d.device)),
-    )
-
-
-def _sort_key(scene: Scene, o, d, alive):
-    return ray_sort_key(o, d, scene.bounds[0], scene.bounds[1], alive)
-
-
-def _brute_rows(scene: Scene):
-    """The brute-force kernels' 48 B triangle rows: the head of the
-    scene's ``brute_tables`` (a view, built once per scene)."""
-    return scene.brute_tables[: BRUTE_ROW_WORDS * scene.tri_v0.shape[0]]
-
-
-def _affine_pts(a, p):
-    """A (3,4) affine [R|t] applied to (N,3) points with explicit float32
-    multiply-adds: a matrix product may round through TF32 or bf16 and
-    shift origins far enough to self-shadow."""
-    return torch.stack(
-        [p[:, 0] * a[i, 0] + p[:, 1] * a[i, 1] + p[:, 2] * a[i, 2] + a[i, 3] for i in range(3)],
-        dim=-1,
-    )
-
-
-def _affine_vecs(a, v):
-    """The linear part only (directions)."""
-    return torch.stack(
-        [v[:, 0] * a[i, 0] + v[:, 1] * a[i, 1] + v[:, 2] * a[i, 2] for i in range(3)], dim=-1
-    )
-
-
-def _rows_pts(rows, p):
-    """Per-ray (N,3,4) affines applied to (N,3) points (float32 mul-adds)."""
-    return torch.sum(rows[:, :, :3] * p[:, None, :], dim=-1) + rows[:, :, 3]
-
-
-def _rows_vecs(rows, v):
-    return torch.sum(rows[:, :, :3] * v[:, None, :], dim=-1)
-
-
-def _rows_vecs_t(rows, v):
-    """The transposed linear part (normals: M⁻ᵀ)."""
-    return torch.sum(rows[:, :, :3] * v[:, :, None], dim=-2)
-
-
-def _ray_box_hit(o, d, lo, hi):
-    """(N,) bool: does the forward ray meet the box (lo, hi)? Parked rays
-    (far origin, pointing away) never do."""
-    tiny = 1e-12
-    inv = 1.0 / torch.where(torch.abs(d) < tiny, tiny, d)
-    t0 = (lo - o) * inv
-    t1 = (hi - o) * inv
-    tn = torch.minimum(t0, t1).amax(dim=-1)
-    tf = torch.maximum(t0, t1).amin(dim=-1)
-    return tf >= torch.clamp(tn, min=0.0)
-
-
-def _closest_raw_mesh(cfg, o, d, mesh):
-    """(t, local row) of the rays on one instance's mesh tables: kernel 4
-    for a BVH mesh, kernel 2 otherwise, the plain sweep for CPU tensors."""
-    if not _use_kernels(cfg, o):
-        return intersect_closest_raw(o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, cfg.tri_chunk)
-    if mesh.bvh is not None:
-        return bvh_cuda.bvh_closest_raw(o, d, mesh)
-    return intersect_cuda.closest_bruteforce(
-        o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, rows=mesh.tri_rows
-    )
-
-
-def _any_raw_mesh(cfg, o, d, t_max, mesh):
-    """(N,) bool occlusion of the rays on one instance's mesh tables."""
-    if not _use_kernels(cfg, o):
-        return intersect_any(o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, t_max, cfg.tri_chunk)
-    if mesh.bvh is not None:
-        return bvh_cuda.bvh_any_raw(o, d, mesh, t_max) > 0
-    return intersect_cuda.anyhit_bruteforce(
-        o, d, mesh.tri_v0, mesh.tri_e0, mesh.tri_e1, t_max, rows=mesh.tri_rows
-    )
-
-
-def _inst_sort_on(cfg, inst, o) -> bool:
-    """Sort instanced queries (kernel route only): on, or auto with a BVH
-    mesh among the instances."""
-    if not _use_kernels(cfg, o):
-        return False
-    if cfg.sort_rays == "auto":
-        return any(m.bvh is not None for m in inst.meshes)
-    return cfg.sort_rays == "on"
-
-
-def _inst_park(o, d, keep):
-    m = keep[:, None]
-    return (
-        torch.where(m, o, _DEAD_ORIGIN),
-        torch.where(m, d, torch.tensor(_DEAD_DIR, dtype=d.dtype, device=d.device)),
-    )
-
-
-def _instance_rays(inst, k, o, d):
-    """Instance ``k``'s object-space rays and the mask of the rays that
-    meet its world box; the others parked."""
-    a = inst.obj_from_world[k]
-    o_k = _affine_pts(a, o)
-    d_k = _affine_vecs(a, d)
-    if inst.bounds_lo is None:
-        return o_k, d_k, None
-    hit_box = _ray_box_hit(o, d, inst.bounds_lo[k], inst.bounds_hi[k])
-    o_k, d_k = _inst_park(o_k, d_k, hit_box)
-    return o_k, d_k, hit_box
-
-
-def _closest_instanced(scene: Scene, cfg, o, d, alive=None):
-    """Closest hit over the placed meshes: per instance, the rays that meet
-    its world box, in object space (t is shared between the spaces, the
-    object direction left unnormalized), on that mesh's tables; the
-    nearest hit kept with its global row (local row + ``tstart``). One
-    epilogue in the winner's object space over the scene's concatenated
-    arrays, then position, normal (inverse transpose) and error bound
-    back to world space."""
-    inst = scene.instances
-    o, d = _park_dead(o, d, alive)
-    n = o.shape[0]
-
-    def run(o_s, d_s):
-        best_t = torch.full((n,), BIG_T, dtype=torch.float32, device=o.device)
-        best_i = torch.zeros((n,), dtype=torch.int64, device=o.device)
-        best_k = torch.zeros((n,), dtype=torch.int64, device=o.device)
-        for k, mesh in enumerate(inst.meshes):
-            o_k, d_k, hit_box = _instance_rays(inst, k, o_s, d_s)
-            t, i = _closest_raw_mesh(cfg, o_k, d_k, mesh)
-            better = t < best_t
-            if hit_box is not None:
-                better = better & hit_box
-            best_t = torch.where(better, t, best_t)
-            best_i = torch.where(better, i + inst.tstart[k], best_i)
-            best_k = torch.where(better, k, best_k)
-        return best_t, best_i, best_k
-
-    if _inst_sort_on(cfg, inst, o):
-        best_t, best_i, best_k = sorted_apply(o, d, _sort_key(scene, o, d, alive), run)
-    else:
-        best_t, best_i, best_k = run(o, d)
-
-    a_win = inst.obj_from_world[best_k]  # (N,3,4) each ray's instance
-    m_win = inst.world_from_obj[best_k]
-    hit = closest_epilogue(
-        _rows_pts(a_win, o), _rows_vecs(a_win, d), scene.tri_v0, scene.tri_e0, scene.tri_e1,
-        best_t, best_i,
-    )
-    return hit._replace(
-        pos=_rows_pts(m_win, hit.pos),
-        normal=normalize(_rows_vecs_t(a_win, hit.normal)),  # M⁻ᵀ = (obj_from_world)ᵀ
-        error=_rows_vecs(torch.abs(m_win), hit.error),  # conservative |M|·err
-    )
-
-
-def _any_instanced(scene: Scene, cfg, o, d, t_max, alive=None):
-    """Occlusion over the placed meshes: any instance's mesh hit below
-    ``t_max`` (the box test is not clamped to ``t_max``)."""
-    inst = scene.instances
-    o, d = _park_dead(o, d, alive)
-    n = o.shape[0]
-    t_arr = torch.broadcast_to(
-        torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (n,)
-    )
-
-    def run(o_s, d_s, t_s):
-        occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
-        for k, mesh in enumerate(inst.meshes):
-            o_k, d_k, hit_box = _instance_rays(inst, k, o_s, d_s)
-            occ_k = _any_raw_mesh(cfg, o_k, d_k, t_s, mesh)
-            occ = occ | (occ_k if hit_box is None else occ_k & hit_box)
-        return occ
-
-    if _inst_sort_on(cfg, inst, o):
-        return sorted_apply_tmax(o, d, t_arr, _sort_key(scene, o, d, alive), run)
-    return run(o, d, t_arr)
-
-
-def _count_rays(o, alive) -> None:
-    """The rays handed to a query (``rays.query``) and, while recording,
-    those of them alive (``rays.live``)."""
-    trace.count("rays.query", o.shape[0])
-    if alive is not None:
-        trace.count_device("rays.live", alive)
-
-
-def _closest(scene: Scene, cfg, o, d, alive=None):
-    with trace.span("pt.closest"):
-        _count_rays(o, alive)
-        if scene.instances is not None:
-            return _closest_instanced(scene, cfg, o, d, alive)
-        if not _use_kernels(cfg, o):
-            t, i = intersect_closest_raw(
-                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, cfg.tri_chunk
-            )
-        elif scene.bvh is not None:
-            o, d = _park_dead(o, d, alive)
-            if _sort_on(cfg, scene):
-                with trace.span("pt.raysort"):
-                    key = _sort_key(scene, o, d, alive)
-                t, i = sorted_apply(
-                    o, d, key, lambda so, sd: bvh_cuda.bvh_closest_raw(so, sd, scene)
-                )
-            else:
-                t, i = bvh_cuda.bvh_closest_raw(o, d, scene)
-        else:
-            t, i = intersect_cuda.closest_bruteforce(
-                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, rows=_brute_rows(scene)
-            )
-        return closest_epilogue(o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t, i)
-
-
-def _any(scene: Scene, cfg, o, d, t_max, alive=None):
-    with trace.span("pt.shadow"):
-        _count_rays(o, alive)
-        if scene.instances is not None:
-            return _any_instanced(scene, cfg, o, d, t_max, alive)
-        if not _use_kernels(cfg, o):
-            return intersect_any(
-                o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, cfg.tri_chunk
-            )
-        if scene.bvh is not None:
-            o, d = _park_dead(o, d, alive)
-            if _sort_on(cfg, scene):
-                with trace.span("pt.raysort"):
-                    key = _sort_key(scene, o, d, alive)
-                occ = sorted_apply_tmax(
-                    o, d, t_max, key, lambda so, sd, st: bvh_cuda.bvh_any_raw(so, sd, scene, st),
-                )
-            else:
-                occ = bvh_cuda.bvh_any_raw(o, d, scene, t_max)
-            return occ > 0
-        return intersect_cuda.anyhit_bruteforce(
-            o, d, scene.tri_v0, scene.tri_e0, scene.tri_e1, t_max, rows=_brute_rows(scene)
-        )
 
 
 def resolve_fused(scene: Scene, cfg: MegakernelConfig) -> MegakernelConfig:
@@ -647,11 +375,23 @@ def _shading_normal(scene: Scene, hit):
     return torch.where(flip, -ns, ns)
 
 
-def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+def _shadow_connection(scene: Scene, cfg, hit, mat, wo, inside, ns, alive, direction, distance, live):
+    """One light sample's BSDF about ``ns`` and shadow ray up to ``distance``
+    → (f·cosθ, BSDF pdf, occluded). The ray is live (not parked) where
+    ``live``, f·cosθ > 0 and ``alive`` hold; with ``live`` None, where
+    ``alive`` does."""
+    f_cos, bsdf_pdf = eval_bsdf(mat, wo, direction, ns, hit.normal, inside, ft=cfg.features)
+    shadow_live = alive
+    if live is not None:
+        shadow_live = live & (max_component(f_cos) > 0.0) & alive
+    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
+    occluded = query.occluded(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
+    return f_cos, bsdf_pdf, occluded
+
+
+def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive, ns):
     """Next-event estimation at the hit points → (N,3) contribution, the
-    BSDF evaluated about the shading normal ``ns`` (default: geometric).
-    Shadow rays of dead paths, and of samples whose contribution is zero
-    anyway, are marked dead for the BVH kernels (parked, sorted last)."""
+    BSDF evaluated about the shading normal ``ns``."""
     n_lights = scene.num_lights
     ul = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.LIGHT_SELECT)
     light_idx = torch.clamp((ul * n_lights).to(torch.int64), max=n_lights - 1)
@@ -675,15 +415,9 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
         pdf = torch.where(is_area, pdf_a, pdf)
         le = torch.where(is_area[..., None], le_a, le)
 
-    f_cos, bsdf_pdf = eval_bsdf(
-        mat, wo, direction, hit.normal if ns is None else ns, hit.normal, inside,
-        ft=cfg.features,
+    f_cos, bsdf_pdf, occluded = _shadow_connection(
+        scene, cfg, hit, mat, wo, inside, ns, alive, direction, distance, pdf > 0.0
     )
-    shadow_live = (pdf > 0.0) & (max_component(f_cos) > 0.0)
-    if alive is not None:
-        shadow_live = shadow_live & alive
-    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
-    occluded = _any(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
 
     # point/spot/directional lights are not scene geometry: NEE is their
     # only estimator, so no MIS weight and no division by the cone pdf (the
@@ -708,10 +442,9 @@ def _nee(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, 
     return torch.where(ok[..., None], contrib, 0.0)
 
 
-def _tree_record_nee(scene: Scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, alive=None, ns=None):
+def _tree_record_nee(scene: Scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, alive, ns):
     """Contribution of one light-tree record (a point/spot row or an
-    emissive triangle) selected with pmf ``pmf``; one shadow ray, marked
-    dead where the contribution is zero anyway."""
+    emissive triangle) selected with pmf ``pmf``; one shadow ray."""
     tree = scene.light_tree
     kind = tree.rec_kind[rec]
     idx = tree.rec_idx[rec].to(torch.int64)
@@ -748,15 +481,9 @@ def _tree_record_nee(scene: Scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, 
         pdf = torch.where(is_tri, pdf_tri, pdf)
         le = torch.where(is_tri[..., None], trad, le)
 
-    f_cos, bsdf_pdf = eval_bsdf(
-        mat, wo, direction, hit.normal if ns is None else ns, hit.normal, inside,
-        ft=cfg.features,
+    f_cos, bsdf_pdf, occluded = _shadow_connection(
+        scene, cfg, hit, mat, wo, inside, ns, alive, direction, distance, (pdf > 0.0) & (pmf > 0.0)
     )
-    shadow_live = (pdf > 0.0) & (pmf > 0.0) & (max_component(f_cos) > 0.0)
-    if alive is not None:
-        shadow_live = shadow_live & alive
-    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, direction)
-    occluded = _any(scene, cfg, shadow_o, direction, distance, alive=shadow_live)
 
     # rows: NEE only, divided by the selection pmf; triangles: power-
     # heuristic MIS on the full density pmf·pdf
@@ -770,7 +497,7 @@ def _tree_record_nee(scene: Scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, 
     return torch.where(ok[..., None], contrib, 0.0)
 
 
-def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive, ns):
     """Light-tree NEE: below each live root of the deterministic split
     (``cfg.nee_splits`` subtrees) one importance descent and one shadow
     ray (dims ``TREE_U + 3·slot``); the infinite rows (environment,
@@ -794,11 +521,8 @@ def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, 
         u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.LIGHT_U)
         ls = sample_light(lt, hit.pos, u1, u2, hit.normal, types=scene.light_types)
         le = eval_light(lt, ls)
-        shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, ls.direction)
-        occluded = _any(scene, cfg, shadow_o, ls.direction, ls.distance, alive=alive)
-        f_cos, _ = eval_bsdf(
-            mat, wo, ls.direction, hit.normal if ns is None else ns, hit.normal, inside,
-            ft=cfg.features,
+        f_cos, _, occluded = _shadow_connection(
+            scene, cfg, hit, mat, wo, inside, ns, alive, ls.direction, ls.distance, None
         )
         # environment rows are extended (uniform-sphere) lights: divide by the pdf
         c_inf = torch.where(
@@ -811,20 +535,14 @@ def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, 
     return total
 
 
-def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive=None, ns=None):
+def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, hit, mat, wo, inside, alive, ns):
     """Environment-map NEE at the hit points, power-heuristic MIS against
     BSDF sampling → (N,3) contribution."""
     u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.ENV_U)
     d_env, le, pdf_env = sample_envmap(scene.env, u1, u2)
-    f_cos, bsdf_pdf = eval_bsdf(
-        mat, wo, d_env, hit.normal if ns is None else ns, hit.normal, inside,
-        ft=cfg.features,
+    f_cos, bsdf_pdf, occluded = _shadow_connection(
+        scene, cfg, hit, mat, wo, inside, ns, alive, d_env, 3.0e38, pdf_env > 0.0
     )
-    shadow_live = (pdf_env > 0.0) & (max_component(f_cos) > 0.0)
-    if alive is not None:
-        shadow_live = shadow_live & alive
-    shadow_o = offset_ray_origin(hit.pos, hit.error, hit.normal, d_env)
-    occluded = _any(scene, cfg, shadow_o, d_env, 3.0e38, alive=shadow_live)
     w = sqr(pdf_env) / torch.clamp(sqr(pdf_env) + sqr(bsdf_pdf), min=1e-24)
     contrib = le * f_cos * (w / torch.clamp(pdf_env, min=1e-12))[..., None]
     ok = (pdf_env > 0.0) & ~occluded
@@ -836,7 +554,7 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
     with trace.span("pt.bounce", depth=depth):
         n = state.o.shape[0]
         depth_dim = depth * R.DIMS_PER_BOUNCE
-        hit = _closest(scene, cfg, state.o, state.d, alive=state.alive)
+        hit = query.closest(scene, cfg, state.o, state.d, alive=state.alive)
         with trace.span("pt.shade"):
             # miss → environment, path dies; when the environment is also
             # NEE-sampled, MIS-weighted against the last bounce's bsdf pdf (delta

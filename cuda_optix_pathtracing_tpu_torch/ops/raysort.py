@@ -81,29 +81,21 @@ def _unsort(idx, x):
     return out
 
 
-def sorted_apply(o, d, key, fn):
-    """``fn(o_sorted, d_sorted)`` → a tensor or a tuple of (N,) tensors,
-    run on the rays stably sorted by ``key`` and returned in the rays'
-    own order. The sort and the unsort are ``pt.raysort`` spans."""
+def sorted_apply(o, d, key, fn, *extras):
+    """``fn(o_sorted, d_sorted, *extras_sorted)`` → a tensor or a tuple of
+    (N,) tensors, run on the rays stably sorted by ``key`` and returned in
+    the rays' own order. Each extra (a ``t_max``) is per ray or one value
+    for all, broadcast to (N,) of the rays' dtype and sorted along. The
+    sort and the unsort are ``pt.raysort`` spans."""
     with trace.span("pt.raysort"):
         idx = torch.sort(key, stable=True).indices
-        o, d = o[idx], d[idx]
-    outs = fn(o, d)
+        extras = [
+            torch.broadcast_to(torch.as_tensor(x, dtype=o.dtype, device=o.device), (o.shape[0],))
+            for x in extras
+        ]
+        o, d, *extras = (x[idx] for x in (o, d, *extras))
+    outs = fn(o, d, *extras)
     with trace.span("pt.raysort"):
         if isinstance(outs, tuple):
             return tuple(_unsort(idx, x) for x in outs)
         return _unsort(idx, outs)
-
-
-def sorted_apply_tmax(o, d, t_max, key, fn):
-    """Like :func:`sorted_apply` with a per-ray ``t_max`` sorted along:
-    ``fn(o_sorted, d_sorted, t_max_sorted)`` → one (N,) tensor."""
-    with trace.span("pt.raysort"):
-        idx = torch.sort(key, stable=True).indices
-        t_max = torch.broadcast_to(
-            torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],)
-        )
-        o, d, t_max = o[idx], d[idx], t_max[idx]
-    occ = fn(o, d, t_max)
-    with trace.span("pt.raysort"):
-        return _unsort(idx, occ)

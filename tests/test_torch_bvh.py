@@ -200,7 +200,7 @@ def test_parked_dead_rays_miss_in_oracle_and_sweep(mesh8):
     """The wavefront parks dead rays before a BVH query: they sort last
     and both the traversal (its oracle) and the plain sweep miss them, so
     kernel and sweep agree on every row of a main-path launch."""
-    from cuda_optix_pathtracing_tpu_torch.models.megakernel import _park_dead, _sort_key
+    from cuda_optix_pathtracing_tpu_torch.ops.query import _park_dead, _sort_key
 
     o, d, t_max = (torch.from_numpy(a) for a in random_rays(256, seed=5, spread=1.5))
     alive = torch.from_numpy(np.random.default_rng(6).random(256) < 0.5)

@@ -72,7 +72,7 @@ def test_sorted_apply_round_trip_is_exact():
     # each ray went to the position its key gives it
     np.testing.assert_array_equal(pos.numpy(), torch.argsort(idx).numpy())
     t_max = torch.from_numpy(np.random.default_rng(2).random(4096).astype(np.float32))
-    out = TR.sorted_apply_tmax(o, d, t_max, key, lambda so, sd, st: st * (so + sd).sum(-1))
+    out = TR.sorted_apply(o, d, key, lambda so, sd, st: st * (so + sd).sum(-1), t_max)
     np.testing.assert_array_equal(out.numpy(), (t_max * (o + d).sum(-1)).numpy())
 
 

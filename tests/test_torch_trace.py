@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cuda_optix_pathtracing_tpu_torch.models import differentiable as D
 from cuda_optix_pathtracing_tpu_torch.models import megakernel as MK
+from cuda_optix_pathtracing_tpu_torch.ops import query as Q
 from cuda_optix_pathtracing_tpu_torch.ops import rng as R
 from cuda_optix_pathtracing_tpu_torch.ops.film import film_new
 from cuda_optix_pathtracing_tpu_torch.scene import cornell_box
@@ -116,7 +117,7 @@ def test_loss_backward_opens_replay_spans(scene):
 
 
 def test_ray_counters_equal_hand_counts(scene, monkeypatch):
-    """``rays.query``: every ray handed to ``_closest`` and ``_any``;
+    """``rays.query``: every ray handed to ``closest`` and ``occluded``;
     ``rays.live``: those alive, which only a recording counts."""
     cfg = MK.MegakernelConfig(max_depth=DEPTH, fused="off")
     px, py, sample, o, d, _, _ = MK.camera_batch(scene, cfg, W, H, 0)
@@ -125,7 +126,7 @@ def test_ray_counters_equal_hand_counts(scene, monkeypatch):
     # by hand: the closest queries see each bounce's state, the shadow
     # queries the rays NEE marks alive
     shadow_live = []
-    any_plain = MK._any
+    any_plain = Q.occluded
 
     def spy(scene, cfg, o, d, t_max, alive=None):
         shadow_live.append(int(alive.sum()))
@@ -134,7 +135,7 @@ def test_ray_counters_equal_hand_counts(scene, monkeypatch):
     state = MK.camera_path_state(scene, cfg, o, d)
     closest_live = []
     with monkeypatch.context() as m:
-        m.setattr(MK, "_any", spy)
+        m.setattr(Q, "occluded", spy)
         sampler = R.Sampler(cfg.sampler, cfg.seed)
         for depth in range(DEPTH):
             closest_live.append(int(state.alive.sum()))
@@ -206,7 +207,7 @@ def test_texture_counters_equal_hand_counts(teapot, monkeypatch):
     px, py, sample, o, d, _, _ = MK.camera_batch(teapot, cfg, 8, 8, 0)
     n = o.shape[0]
     live_hits = []
-    closest = MK._closest
+    closest = Q.closest
 
     def spy(scene, cfg, o, d, alive=None):
         hit = closest(scene, cfg, o, d, alive=alive)
@@ -214,7 +215,7 @@ def test_texture_counters_equal_hand_counts(teapot, monkeypatch):
         return hit
 
     with monkeypatch.context() as m:
-        m.setattr(MK, "_closest", spy)
+        m.setattr(Q, "closest", spy)
         state = MK.camera_path_state(teapot, cfg, o, d)
         sampler = R.Sampler(cfg.sampler, cfg.seed)
         for depth in range(DEPTH):
