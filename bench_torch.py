@@ -74,7 +74,7 @@ GRAD_CHECK_SIZE = 64
 # within one call (the mesh box's fused="off" pass ran in two regimes, 4.3
 # and 6.5 Mpaths/s, on an H100 80GB HBM3), so the median needs many
 WINDOWS = 21
-SOURCES = ("intersect", "megakernel", "bvh")
+SOURCES = ("intersect", "megakernel", "bvh", "bsdf_step")
 SCENE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes")
 # chip_smoke.KERNEL_NAMES keys → the kernel's name and its wrapper's launch counter
 KERNELS = {
@@ -88,6 +88,9 @@ KERNELS = {
 # the camera kernel's counter: the camera stage before any route, not a
 # route's kernel
 CAMERA = "camera_rays"
+# the BSDF stage's kernel's counter: one launch a bounce of every forward
+# render on the unfused route, none on a fused route or in a gradient step
+BSDF_STAGE = "bsdf_step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,10 +352,11 @@ def run_cell(name: str, scenes: dict, seed: int = 0, windows: int | None = None,
     got = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     counted = {KERNELS[k][1] for k in cell.kernels}
-    CS.check(all(got[c] > 0 for c in counted) and all(v == 0 for c, v in got.items()
-                                                      if c not in counted and c != CAMERA),
-             f"{name}: the timed windows launched {got}: {sorted(counted)} and no other "
-             f"kernel of the route")
+    unfused_forward = not cell.grad and not {"fused", "fused_bvh"} & set(cell.kernels)
+    CS.check(all(got[c] > 0 for c in counted) and (got[BSDF_STAGE] > 0) == unfused_forward
+             and all(v == 0 for c, v in got.items() if c not in counted | {CAMERA, BSDF_STAGE}),
+             f"{name}: the timed windows launched {got}: {sorted(counted)}, "
+             f"{BSDF_STAGE} {'' if unfused_forward else 'not '}and no other kernel of the route")
     med, spread = median_spread(vals)
 
     # per layer, from a separate traced run of one unit of the traffic

@@ -76,6 +76,12 @@ Phases (each fails loudly; there is no CPU fallback):
    ``pt_camera_rays`` at the Cornell pass (65,536 rays) and the mesh pass
    (1,048,576, Morton order), bit-equal to ``camera_plain``, one launch a
    pass, its device time against the bound of the bytes it writes;
+   (4b) the BSDF stage's kernel ``pt_bsdf_step`` at every launch of one
+   ``fused="off"`` pass of the mesh box (16 spp: 5 launches of 1,048,576
+   rows) and of the textured teapot (32 spp, depth 12: 12 launches of
+   2,097,152 rows), each held to the plain stage bit for bit, its launches
+   counted, its device time against the bound of the bytes it moves, and
+   the plain stage's time;
 5. gradients (``models/differentiable.py``; the ``fused="off"`` route with
    path replay, kernels 2 and 3 in the forward pass and again in the
    replay): bench.py's albedo-gradient step (256², depth 5, 4 spp as one
@@ -836,7 +842,7 @@ def launch_counters():
     from cuda_optix_pathtracing_tpu_torch.utils import trace
 
     names = ("trace_paths_fused", "closest_bruteforce", "anyhit_bruteforce",
-             "bvh_closest_raw", "bvh_any_raw", "bounce_fused", "camera_rays")
+             "bvh_closest_raw", "bvh_any_raw", "bounce_fused", "camera_rays", "bsdf_step")
 
     def zero():
         torch.cuda.synchronize()
@@ -908,6 +914,117 @@ def camera_kernel_phase(MK, MKC, scene, mesh, launches: dict, tag: str) -> dict:
             "replaces": None, "launches": launches["cornell"][0], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
             "launches_1m": launches["mesh"][0], "ms_1m": out["mesh"][0], "bound_ms_1m": out["mesh"][1]}
+
+
+def stage_bytes(args):
+    """(bytes, live rows) of one launch of ``pt_bsdf_step`` on the stage
+    arguments ``args`` (``bsdf_step``'s, cfg and sampler first): a row that
+    reaches it alive reads every input row once (state, hit, shading
+    normal, material columns, keys, cones, prev_n) and writes the new
+    state; a dead row reads its flag and its state and writes that state."""
+    import torch
+
+    _, _, px, py, sample, depth, state, hit, mat, _, ns, alive, _, cone_at_hit = args
+    n = state.o.shape[0]
+    live = int(alive.sum())
+
+    def per_row(*xs):
+        return sum(x.element_size() * x.numel() / n for x in xs if torch.is_tensor(x))
+
+    kept = [state.o, state.d, state.beta, state.eta_scale, state.prev_pdf, state.inside,
+            state.prev_delta, state.cone_w, state.cone_s, state.prev_n]
+    out = per_row(*kept) + per_row(alive)
+    live_in = per_row(*kept, alive, ns, hit.pos, hit.error, hit.normal, *mat[:11], px, py,
+                      sample, depth, cone_at_hit)
+    dead_in = per_row(alive, *kept)
+    return live * (live_in + out) + (n - live) * (dead_in + out), live
+
+
+def bsdf_step_phase(MK, mesh, zero, read, tag: str) -> dict:
+    """The BSDF stage's kernel (``pt_bsdf_step``, port-only: the reference
+    runs the stage as XLA ops) at the main path's own launches: one
+    ``fused="off"`` pass of the mesh box (``mesh256_d5_off``: 16 spp, 5
+    launches of 1,048,576 rows) and one of the textured teapot
+    (``scene_test_d12_render``: 32 spp, 12 launches of 2,097,152 rows).
+    Each launch's inputs are recorded, the kernel is held to the plain
+    stage on them bit for bit (every field of the new state), the pass's
+    launches counted, and the kernel timed: device ms per launch (CUDA
+    events around the pass's launches queued behind a device sleep)
+    against the bound of the bytes they move (``stage_bytes``), and the
+    plain stage's ms per launch → the kernel's entry of the
+    ``{"kernels": ...}`` line."""
+    import itertools
+
+    import torch
+
+    from cuda_optix_pathtracing_tpu_torch.models import bsdf_step as BS
+    from cuda_optix_pathtracing_tpu_torch.ops import _cuda_build
+    from cuda_optix_pathtracing_tpu_torch.scene import load_scene
+
+    dev = torch.device("cuda")
+    print(f"phase 4b: pt_bsdf_step at the main path's launches {tag}")
+    teapot, parsed = load_scene(os.path.join(SCENE_DIR, "scene_test.json"), device=dev)
+    cases = (
+        ("off", mesh, MK.MegakernelConfig(fused="off"), MESH_SPP),
+        ("teapot", teapot, MK.MegakernelConfig(max_depth=parsed.max_depth), parsed.spp),
+    )
+    out = {}
+    for label, sc, cfg, spp in cases:
+        recs = []
+
+        def recording(*args):
+            recs.append(args)
+            return BS.bsdf_step(*args)
+
+        zero()
+        MK.bsdf_step = recording
+        try:
+            MK.render_sample_batch(sc, cfg, W, H, 0, nspp=spp)
+        finally:
+            MK.bsdf_step = BS.bsdf_step
+        got = read()
+        n = W * H * spp
+        check(got["bsdf_step"] == cfg.max_depth and len(recs) == cfg.max_depth,
+              f"pt_bsdf_step, {label}: {got['bsdf_step']} launches in a pass of depth "
+              f"{cfg.max_depth}")
+        differ = []
+        for depth, args in enumerate(recs):
+            new, ref = BS.bsdf_step(*args), BS.bsdf_step_plain(*args)
+            for name, a, b in zip(new._fields, new, ref):
+                if a is not None and not torch.equal(
+                        a.view(torch.int32) if a.dtype == torch.float32 else a,
+                        b.view(torch.int32) if b.dtype == torch.float32 else b):
+                    differ.append(f"{name} at depth {depth}")
+        check(not differ, f"pt_bsdf_step, {label}: the new state bit-equal to the plain stage's "
+                          f"at each of the pass's {len(recs)} launches (differ: {differ or 'none'})")
+        moved = [stage_bytes(a) for a in recs]
+        nbytes = sum(b for b, _ in moved) / len(recs)
+        live = [lv for _, lv in moved]
+        b_ms = nbytes / HBM_BYTES_S * 1e3
+        cycle = itertools.cycle(recs)
+
+        def make_launch():
+            args = next(cycle)
+            return lambda: BS.bsdf_step(*args)
+
+        ms = queued_ms(make_launch, n=len(recs), reps=5)
+        plain_ms = sum(cuda_ms(lambda a=a: BS.bsdf_step_plain(*a), 1, reps=3) for a in recs) / len(recs)
+        print(f"  pt_bsdf_step ({label}, {n} rows, {len(recs)} launches a pass, "
+              f"{100 * sum(live) / (n * len(recs)):.1f} % of the rows alive): {ms:.4f} ms per "
+              f"launch on the device (the pass's launches queued), bound {b_ms:.4f} ms (bytes: "
+              f"{nbytes / n:.1f} B a row, {100 * b_ms / ms:.1f} % of it); plain stage "
+              f"{plain_ms:.3f} ms per launch; bit-equal {tag}")
+        out[label] = (ms, b_ms, plain_ms, got["bsdf_step"])
+        del recs
+    regs = [line.strip() for line in _cuda_build.ptxas_report("bsdf_step").splitlines()
+            if "registers" in line or "stack frame" in line]
+    ms, b_ms, plain_ms, launches = out["off"]
+    csrc = "cuda_optix_pathtracing_tpu_torch/csrc/"
+    return {"name": "pt_bsdf_step", "route": "cuda", "source": csrc + "bsdf_step.cu",
+            "replaces": None, "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+            "launches_2m": out["teapot"][3], "ms_2m": out["teapot"][0],
+            "bound_ms_2m": out["teapot"][1], "plain_ms_2m": out["teapot"][2], "ptxas": regs}
 
 
 def check(cond: bool, what: str) -> None:
@@ -2131,7 +2248,7 @@ def main() -> int:
     card = card_line()
     print(card)
     tag = f"[{card}]"
-    sources = ["intersect", "megakernel", "bvh"]
+    sources = ["intersect", "megakernel", "bvh", "bsdf_step"]
 
     def timed(fn):
         t = time.perf_counter()
@@ -2901,6 +3018,7 @@ def main() -> int:
     camera_launches = {"cornell": (launches_on["camera_rays"], SPP_FUSED),
                        "mesh": (launches_mon["camera_rays"], MESH_SPP)}
     kernels.append(camera_kernel_phase(MK, MKC, scene, mesh, camera_launches, tag))
+    kernels.append(bsdf_step_phase(MK, mesh, zero, read, tag))
     print(f"  fused kernel work: {hits} hits shaded, {tests} ray-triangle tests for "
           f"{n1} paths ({flops_fused / n1:.0f} flop/path); any-hit: {any_tests / n1:.2f} "
           f"tests/ray of {n_tris}")

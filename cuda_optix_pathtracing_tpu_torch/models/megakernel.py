@@ -32,7 +32,9 @@ Two routes down the same path:
 - ``fused="off"``: ``trace_paths`` below, a Python depth loop of dense
   masked bounce steps over the ray batch. Its closest-hit and shadow
   queries go through ``ops/query.py``, which picks their kernel (or the
-  plain sweep), parks dead rays, sorts the rays and loops over instances.
+  plain sweep), parks dead rays, sorts the rays and loops over instances;
+  its BSDF stage is one launch of ``pt_bsdf_step`` a bounce
+  (``models/bsdf_step.py``) for CUDA rows that no gradient needs.
 
 BVH scenes render their camera rays in Morton pixel order when the image
 is a power-of-two square (``pixel_order``), so neighbouring rays start in
@@ -47,7 +49,7 @@ with one launch of the camera kernel (``camera_rays_fused``), any other
 camera batch with ``camera_plain``, the kernel's plain version.
 
 ``trace_paths`` with ``backend="torch"`` is the plain version of the fused
-kernel and of the intersection kernels.
+kernel, of the intersection kernels and of the BSDF-stage kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..ops import query
 from ..ops import rng as R
-from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf, sample_bsdf
+from ..ops.bsdf import ALL_FEATURES, MatFeatures, eval_bsdf
 from ..ops.camera import generate_rays, pixel_centers
 from ..ops.envmap import env_radiance, eval_envmap, sample_envmap
 from ..ops.film import Film, film_add_batch, film_add_sample, film_new
@@ -90,6 +92,7 @@ from ..ops.vecmath import (
 )
 from ..scene.types import Scene, scene_to
 from ..utils import trace
+from .bsdf_step import bsdf_step, bsdf_step_plain
 
 
 @dataclass(frozen=True)
@@ -205,12 +208,6 @@ class PathState(NamedTuple):
     # both None in scenes without textures, whose shading needs no LOD
     prev_n: torch.Tensor | None = None  # (N,3) shading normal at the last
     # bounce: the light tree's pmf of a directly hit emitter (tree only)
-
-
-# spread of a path after its first non-specular bounce: a diffuse
-# reflection's footprint grows like a wide cone, pulling deeper bounces
-# toward the coarsest (and cheapest) mips
-DIFFUSE_CONE_SPREAD = 0.3
 
 
 def init_path_state(n: int, o, d, cone_spread=None, tree: bool = False) -> PathState:
@@ -552,7 +549,6 @@ def _nee_env(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, h
 def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: PathState) -> PathState:
     """One path-tracing bounce over the full ray batch."""
     with trace.span("pt.bounce", depth=depth):
-        n = state.o.shape[0]
         depth_dim = depth * R.DIMS_PER_BOUNCE
         hit = query.closest(scene, cfg, state.o, state.d, alive=state.alive)
         with trace.span("pt.shade"):
@@ -578,6 +574,7 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
             textured = scene.textures is not None
             mat = scene.materials.gather(scene.tri_mat[hit.tri].to(torch.int64), textured=textured)
             ns = _shading_normal(scene, hit)
+            cone_at_hit = None
             if textured:
                 with trace.span("pt.texture"):
                     # the ray cone's width at the hit drives the mip selection
@@ -629,59 +626,19 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
                 )
             radiance = radiance + torch.where(alive[..., None], state.beta * nee, 0.0)
         with trace.span("pt.bsdf"):
-            u1, u2 = sampler.sample_2d(px, py, sample, depth_dim + R.Dim.BSDF_U)
-            uc = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.BSDF_UC)
-            bs = sample_bsdf(mat, wo, ns, hit.normal, u1, u2, uc, state.inside, ft=cfg.features)
-
-            valid = bs.pdf > 0.0
-            beta = state.beta * torch.where(
-                valid[..., None], bs.f_cos / torch.clamp(bs.pdf, min=1e-12)[..., None], 1.0
-            )
-            alive = alive & valid
-            o_new = offset_ray_origin(hit.pos, hit.error, hit.normal, bs.wi)
-            inside = state.inside ^ (bs.refract & alive)
-            eta_scale = torch.where(
-                bs.refract & alive, state.eta_scale * sqr(bs.eta), state.eta_scale
+            stage = bsdf_step if _bsdf_kernel_route(cfg, scene, state) else bsdf_step_plain
+            return stage(
+                cfg, sampler, px, py, sample, depth, state, hit, mat, wo, ns, alive, radiance,
+                cone_at_hit,
             )
 
-            # russian roulette on β·∏η² from rr_start_depth on
-            rr_beta = max_component(beta) * eta_scale
-            u_rr = sampler.sample_1d(px, py, sample, depth_dim + R.Dim.RR)
-            q = torch.clamp(1.0 - rr_beta, min=0.0)
-            do_rr = (rr_beta < 1.0) & (depth >= cfg.rr_start_depth)
-            killed = do_rr & (u_rr < q)
-            survived = torch.where(
-                do_rr & ~killed, 1.0 / torch.clamp(1.0 - q, min=1e-6), 1.0
-            )
-            beta = beta * survived[..., None]
-            alive = alive & ~killed
 
-            cone_w = cone_s = None
-            if textured:
-                # ray cones: the width grows by spread·distance; the first
-                # non-specular bounce widens the spread to the diffuse cone
-                cone_w = torch.where(alive, cone_at_hit, state.cone_w)
-                cone_s = torch.where(
-                    alive & ~bs.delta,
-                    torch.clamp(state.cone_s, min=DIFFUSE_CONE_SPREAD),
-                    state.cone_s,
-                )
-
-            a3 = alive[..., None]
-            return PathState(
-                o=torch.where(a3, o_new, state.o),
-                d=torch.where(a3, bs.wi, state.d),
-                beta=torch.where(a3, beta, state.beta),
-                radiance=radiance,
-                alive=alive,
-                inside=inside,
-                eta_scale=eta_scale,
-                prev_pdf=torch.where(alive, bs.pdf, state.prev_pdf),
-                prev_delta=torch.where(alive, bs.delta, state.prev_delta),
-                cone_w=cone_w,
-                cone_s=cone_s,
-                prev_n=None if state.prev_n is None else torch.where(a3, ns, state.prev_n),
-            )
+def _bsdf_kernel_route(cfg, scene: Scene, state: PathState) -> bool:
+    """Does ``pt_bsdf_step`` run this bounce's BSDF stage: the kernel
+    route (``backend`` not "torch"), rows on the card, and no autograd
+    graph recorded (the kernel has no backward, so a gradient's forward
+    and replay keep the plain stage)?"""
+    return cfg.backend != "torch" and state.o.is_cuda and not _needs_grad(scene, state)
 
 
 def trace_paths(scene: Scene, cfg: MegakernelConfig, px, py, sample, o, d, device="cuda",
