@@ -357,6 +357,18 @@ def _count_texture_rows(mat, alive) -> None:
         trace.count_device("tex.live", (torch.stack(ids) >= 0) & alive)
 
 
+def _count_tree_rows(alive, rec_of_tri=None) -> None:
+    """The rows handed to a light-tree descent or pmf replay
+    (``lighttree.query``), and, while recording, those whose answer is
+    used (``lighttree.live``): a descent's live paths, a replay's live
+    paths that hit an emissive triangle with a record (``rec_of_tri``
+    ≥ 0)."""
+    trace.count("lighttree.query", alive.shape[0])
+    if trace.is_recording():
+        used = alive if rec_of_tri is None else alive & (rec_of_tri >= 0)
+        trace.count_device("lighttree.live", used)
+
+
 def _shading_normal(scene: Scene, hit):
     """Barycentric interpolation of the per-corner shading normals,
     aligned with the incident-side geometric normal; the geometric normal
@@ -508,7 +520,9 @@ def _nee_tree(scene: Scene, cfg, sampler: R.Sampler, px, py, sample, depth_dim, 
         base = depth_dim + R.Dim.TREE_U + 3 * slot
         u_sel = sampler.sample_1d(px, py, sample, base)
         u1, u2 = sampler.sample_2d(px, py, sample, base + 1)
-        rec, pmf = sample_light_tree(tree, hit.pos, hit.normal, u_sel, root=root)
+        with trace.span("pt.lighttree"):
+            rec, pmf = sample_light_tree(tree, hit.pos, hit.normal, u_sel, root=root)
+        _count_tree_rows(alive)
         total = total + _tree_record_nee(
             scene, cfg, rec, pmf, hit, mat, wo, inside, u1, u2, alive=alive, ns=ns,
         )
@@ -593,10 +607,13 @@ def bounce_step(scene: Scene, cfg, sampler, px, py, sample, depth: int, state: P
                     # NEE's density for this triangle: the tree's pmf from the last
                     # shading point times the triangle's own area pdf
                     levels, _ = split_frontier(scene.light_tree, cfg.nee_splits)
-                    rec_hit = torch.clamp(scene.tri_emrec[hit.tri], min=0)
-                    pmf_sel = light_tree_pmf(
-                        scene.light_tree, rec_hit, state.o, state.prev_n, split_levels=levels
-                    )
+                    rec_of_tri = scene.tri_emrec[hit.tri]
+                    rec_hit = torch.clamp(rec_of_tri, min=0)
+                    with trace.span("pt.lighttree"):
+                        pmf_sel = light_tree_pmf(
+                            scene.light_tree, rec_hit, state.o, state.prev_n, split_levels=levels
+                        )
+                    _count_tree_rows(alive, rec_of_tri)
                     area_tri = 0.5 * length(cross(scene.tri_e0[hit.tri], scene.tri_e1[hit.tri]))
                     pdf_hit = sqr(hit.t) / torch.clamp(cos_l * area_tri, min=1e-12) * pmf_sel
                 else:

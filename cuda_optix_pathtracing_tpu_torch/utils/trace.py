@@ -14,19 +14,23 @@ reads an environment variable or a flag of the CLI.
 - **Counters**: one registry of named counts. ``count`` adds a Python
   int and is always on (the kernel wrappers' ``launches.<wrapper>``, the
   rays handed to the intersection queries, ``rays.query``, the rows
-  handed to the texture fetches, ``tex.query``, and the RNG keys the
+  handed to the texture fetches, ``tex.query``, the rows handed to a
+  light-tree descent or pmf replay, ``lighttree.query``, and the RNG keys the
   fused kernels could not read in place, ``fused.key_copies``). ``count_device`` adds
   the elements of a device tensor that are nonzero into one device
-  accumulator per name, only while recording (``rays.live``, ``tex.live``);
+  accumulator per name, only while recording (``rays.live``, ``tex.live``,
+  ``lighttree.live``);
   nothing is read back until ``snapshot()``, so no count synchronises the
   device on the hot path. ``is_recording()`` guards the work of building
   such a tensor.
 
 The port's spans: ``pt.batch`` > ``pt.pass`` > ``pt.camera``, ``pt.fused``
 or ``pt.trace`` > ``pt.bounce`` > ``pt.closest``, ``pt.shade`` (>
-``pt.texture`` in textured scenes), ``pt.nee`` > ``pt.shadow``,
-``pt.bsdf``; ``pt.raysort`` under the queries; ``pt.film``; ``pt.loss`` >
-``pt.inject`` in a gradient step.
+``pt.texture`` in textured scenes; ``pt.lighttree``, the pmf replay of an
+emitter hit, in light-tree scenes), ``pt.nee`` > ``pt.shadow`` (and
+``pt.lighttree``, each descent, in light-tree scenes), ``pt.bsdf``;
+``pt.raysort`` under the queries; ``pt.film``; ``pt.loss`` > ``pt.inject``
+in a gradient step.
 
 A recipe that records a render's spans and kernels into one chrome trace
 is in the README.
